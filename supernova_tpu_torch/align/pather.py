@@ -11,9 +11,11 @@ supported valid run of slots is kept (algorithmTwo's seed-chain checks).
 The dictionary values reach the query rows by the cummax + gather variant
 of the reference (`join_once`, else-branch), which the reference's tests
 hold equal to its associative-scan variant.  Left out as TPU-compile
-workarounds: SCAN_PROPAGATE_MAX_ROWS, JOIN_ROWS, table slicing and
-_is_compile_kill.  Mixed-length readsets (the general pather) and readsets
-above one block (the blocked pather) are not ported yet.
+workarounds: SCAN_PROPAGATE_MAX_ROWS, JOIN_ROWS (`_join_block_positions`),
+table slicing and _is_compile_kill.  Readsets above BLOCK_POSITIONS bases
+are pathed block by block (`path_readset_blocked`, the reference's
+_path_readset_blocked).  Mixed-length readsets (the general pather) are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -184,26 +186,45 @@ def path_reads_packed(kmer_words: W3, node_edge, node_pos, from_v, to_v, edge_km
     )
 
 
-def path_readset(bg, rs, device, max_path: int = MAX_PATH) -> ReadPaths:
-    """BaseGraph + ReadSet -> ReadPaths on `device` (rows padded to
-    round_up(n_reads + 1, 1024), as in the reference)."""
-    if int(rs.offsets[-1]) > kcount.BLOCK_POSITIONS:
-        raise NotImplementedError(
-            f"readset of {int(rs.offsets[-1])} bases exceeds one block "
-            f"({kcount.BLOCK_POSITIONS}); the blocked pather is ROADMAP item "
-            "'blocked count and pather'"
-        )
-    pk = kcount.prepare_reads_packed(rs)
-    if pk is None:
-        raise NotImplementedError(
-            "mixed-length readsets need the general pather (path_reads_impl), "
-            "ROADMAP item 'general pather'"
-        )
-    device = torch.device(device)
+def _path_packed(bg, pk, device, max_path: int, rp_pad: int) -> ReadPaths:
     da = bg.device_arrays(device)
     return path_reads_packed(
         da["words"], da["node_edge"], da["node_pos"], da["from_v"], da["to_v"],
         da["edge_kmers"], torch.from_numpy(pk["codes_packed"]).to(device),
-        int(pk["n_reads"]), max_path, pk["uniform_rl"], pk["nbp"],
-        kcount._round_up(rs.n_reads + 1, 1024),
+        int(pk["n_reads"]), max_path, pk["uniform_rl"], pk["nbp"], rp_pad,
     )
+
+
+def path_readset_blocked(bg, rs, device, max_path: int = MAX_PATH,
+                         max_positions: int | None = None) -> ReadPaths:
+    """Path a uniform-length readset block by block (the count's barcode-
+    boundary blocks, BLOCK_POSITIONS bases when max_positions is None):
+    every block is padded to the largest block's bases and to
+    round_up(largest read count + 1, 1024) rows, and its first n_reads rows
+    are kept.  Reads are independent, so the concatenation equals the
+    single-block result over [:n_reads]; the output has n_reads rows."""
+    device = torch.device(device)
+    blocks = kcount.split_readset_blocks(rs, max_positions or kcount.BLOCK_POSITIONS)
+    pad_pos = max(int(b.offsets[-1]) for b in blocks)
+    rp_pad = kcount._round_up(max(b.n_reads for b in blocks) + 1, 1024)
+    parts = []
+    for b in blocks:
+        rp = _path_packed(bg, kcount.prepare_reads_packed(b, pad_to_positions=pad_pos),
+                          device, max_path, rp_pad)
+        parts.append([x[: b.n_reads] for x in rp])
+    return ReadPaths(*(torch.cat([p[i] for p in parts]) for i in range(len(ReadPaths._fields))))
+
+
+def path_readset(bg, rs, device, max_path: int = MAX_PATH) -> ReadPaths:
+    """BaseGraph + ReadSet -> ReadPaths on `device`: rows padded to
+    round_up(n_reads + 1, 1024) for one block, n_reads rows when the
+    readset spans several (as in the reference)."""
+    if kcount._uniform_rl(rs) is None:
+        raise NotImplementedError(
+            "mixed-length readsets need the general pather (path_reads_impl), "
+            "ROADMAP item 'general pather'"
+        )
+    if int(rs.offsets[-1]) > kcount.BLOCK_POSITIONS:
+        return path_readset_blocked(bg, rs, device, max_path)
+    return _path_packed(bg, kcount.prepare_reads_packed(rs), torch.device(device), max_path,
+                        kcount._round_up(rs.n_reads + 1, 1024))

@@ -13,8 +13,9 @@ same tensors (torch.equal compares them).  Two consequences:
     compares order it like the unsigned word (the uint32 hazard of a
     signed 32-bit layout does not arise).
 
-Multi-key sorts are chains of stable torch.sort passes over int64 keys,
-each packing two 32-bit keys order-preservingly (see `lex_argsort`).
+Every multi-key sort goes through `lex_argsort` (ops/kernels/sort.py): the
+stable radix argsort K4 on the card, chained stable torch.sort passes on
+the CPU.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..ops.kernels.sort import lex_argsort
 
 K = 48
 BASES_PER_WORD = 16
@@ -144,30 +147,6 @@ def unpack_bases(w: W3):
 
 
 # ---------------------------------------------------------------- sorting
-
-def _pair(hi, lo):
-    """Two keys in [0, 2^32) -> one int64 key with the same order: hi is
-    shifted to [-2^31, 2^31) (the sign-bit flip) so hi * 2^32 + lo spans
-    the whole int64 range without overflow."""
-    return (hi - (1 << 31)) * (1 << 32) + lo
-
-
-def lex_argsort(*keys):
-    """Permutation sorting rows lexicographically by `keys` (first key most
-    significant), stable.  Every key holds values in [0, 2^32).  Keys are
-    packed two per int64 and sorted by chained stable passes from the last
-    packed key to the first."""
-    packed = [
-        _pair(keys[i], keys[i + 1]) if i + 1 < len(keys) else keys[i]
-        for i in range(0, len(keys), 2)
-    ]
-    perm = None
-    for k in reversed(packed):
-        kk = k if perm is None else k[perm]
-        order = torch.sort(kk, stable=True).indices
-        perm = order if perm is None else perm[order]
-    return perm
-
 
 def sort_by_words(w: W3, extra_keys=(), payloads=()):
     """Lexicographic (stable) sort by the 3 kmer words + extra key columns.

@@ -13,11 +13,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from supernova_tpu.core import dna
-from supernova_tpu.core.ragged import Ragged
-
+from ..core import dna
 from ..core import kmer_codec as kc
 from ..core.kmer_codec import K
+from ..core.ragged import Ragged
 
 
 @dataclass

@@ -1,5 +1,5 @@
-"""48-mer counting on torch tensors: port of the single-block path of
-supernova_tpu/kmer/count.py.
+"""48-mer counting on torch tensors: port of supernova_tpu/kmer/count.py,
+single-block and blocked.
 
 Rules reproduced (see the reference module's docstring): qual trim to the
 longest prefix whose last K bases have qual >= MIN_QUAL; canonical 48-mers
@@ -9,13 +9,21 @@ barcode OR >= min_bc distinct barcodes > 0); then intersect the extension
 masks with table membership.
 
 Design: one lexicographic sort of all (kmer, packed attributes) occurrence
-rows, then per-run reductions.  On the card the reduction is kernel K3
-(csrc/run_reduce.cu) followed by kernel K2 (csrc/compact.cu); on the CPU
-it is the plain cumsum/cummax branch.  The two branches differ only in
-`nbc` above 4095 (the fused stats word clamps it, as on the TPU).
+rows (kernel K4, csrc/radix_sort.cu, on the card), then per-run
+reductions.  On the card the reduction is kernel K3 (csrc/run_reduce.cu)
+followed by kernel K2 (csrc/compact.cu); on the CPU it is the plain
+cumsum/cummax branch.  The two branches differ only in `nbc` above 4095
+(the fused stats word clamps it, as on the TPU).
 
-Readsets above BLOCK_POSITIONS flat bases need the blocked count, which is
-not ported yet (ROADMAP queue: blocked count and pather).
+Readsets above BLOCK_POSITIONS flat bases take the blocked count
+(`count_readset_blocked`): the readset is cut at barcode boundaries into
+blocks, each block is counted WITHOUT the filter into a raw table of its
+distinct kmers (kept rows pulled to host memory), and the concatenated raw
+rows go back to the card for one merge + filter.  Bit-identical to the
+single-block count.  Left out (each raises NotImplementedError where it
+would be needed): the partitioned host merge for raw rows above the
+card's merge budget, blocked counting of mixed-length readsets, and the
+reference's spill/resume and OOM-halving retry.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ import torch
 
 from ..core import kmer_codec as kc
 from ..core.kmer_codec import K, W3
+from ..ingest.feudal import pack_codes
+from ..ingest.reads import ReadSet
 from ..ops import segments as seg
 from ..ops.kernels.run_reduce import run_reduce, run_stats_plain
 
@@ -39,8 +49,12 @@ BASE_BUCKET = 16384  # flat-base padding of mixed-length readsets
 READ_BUCKET = 1024  # read-count padding
 # flat bases one count block holds: the reference's unit of work
 # (supernova_tpu/kmer/count.py BLOCK_POSITIONS); larger readsets go through
-# the blocked count, which this port does not have yet
+# the blocked count.  The output does not depend on the block size.
 BLOCK_POSITIONS = 96_000_000
+# peak device bytes per raw row of merge_raw_blocks, its inputs included,
+# when every row is a distinct kmer (its worst case): 219.6 measured on an
+# H100 by chip_smoke.py's merge phase, rounded up
+MERGE_BYTES_PER_ROW = 224
 
 
 class KmerTable(NamedTuple):
@@ -268,8 +282,6 @@ def prepare_reads_packed(rs, pad_to_positions: int | None = None):
     uniform_rl = _uniform_rl(rs)
     if uniform_rl is None:
         return None
-    from supernova_tpu.ingest.feudal import pack_codes
-
     n_reads = rs.n_reads
     nb = int(rs.offsets[-1])
     nbp = _round_up(max(nb, 1, pad_to_positions or 1), uniform_rl * 128)
@@ -309,22 +321,203 @@ def estimate_coverage(table: KmerTable, read_len: float = 150.0):
     return read_cov, int(counts.sum() / kmer_cov)
 
 
+# ------------------------------------------------------- blocked counting
+
+class RawBlockTable(NamedTuple):
+    """Per-block UNFILTERED reduced table: one row per distinct canonical
+    kmer of the block, stats packed as nbc(12b)|lm(4b)|rm(4b)|has_ign(1b)
+    (K3's stats word).  Blocks are split at barcode boundaries so per-block
+    nbc values sum exactly across blocks."""
+
+    words: W3  # (M,) x3 int64, sentinel past n_valid
+    count: torch.Tensor  # (M,) int32
+    stats: torch.Tensor  # (M,) int32
+    n_valid: torch.Tensor  # 0-d int64
+
+
+def _reduce_occurrences_raw(canon: W3, packed) -> RawBlockTable:
+    """Sort + per-run reduce WITHOUT the (min_freq, min_bc) filter: K3 with
+    min_freq=1, min_bc=0 keeps every real run end (its plain twin on the
+    CPU, which clamps nbc at 4095 as the reference's raw branch does)."""
+    nb = canon.a.shape[0]
+    ws, (pk,), _ = kc.sort_by_words(canon, extra_keys=(packed,))
+    keep, count, stats = run_reduce(ws.a, ws.b, ws.c, pk, 1, 0)
+    n_valid, (wa, wb, wc, c2, st2) = seg.compact_sorted_words(
+        keep, ws.a, ws.b, ws.c, count, stats
+    )
+    m = torch.arange(nb, device=canon.a.device) < n_valid
+    return RawBlockTable(W3(wa, wb, wc).where(m, kc.SENTINEL), c2, st2, n_valid)
+
+
+def count_block_raw_packed(codes_packed, glen_r, bc_r, n_reads: int,
+                           uniform_rl: int, nbp: int) -> RawBlockTable:
+    """One block of the blocked count from compact inputs (2-bit packed
+    codes + per-READ good length and barcode): the per-position arrays are
+    rebuilt on the device (the same values prepare_reads builds on the
+    host), then extract + tail cut + raw reduce."""
+    rl = uniform_rl
+    grid = nbp // rl
+    codes_ext = _unpack_codes_dev(codes_packed, nbp, max(K, 128))
+    pos_read = (torch.arange(nbp, device=codes_ext.device) // rl).clamp(max=n_reads)
+    glen_pos = glen_r[:, None].expand(grid, rl).reshape(-1)
+    bc_pos = bc_r[:, None].expand(grid, rl).reshape(-1)
+    canon, bc, lm, rm, valid = extract_occurrences(codes_ext, pos_read, glen_pos, bc_pos)
+    pk = pack_occurrence_attrs(bc, lm, rm, valid)
+    a_, b_, c_, pk = uniform_tail_cut(rl, canon.a, canon.b, canon.c, pk)
+    canon = W3(a_, b_, c_).where(((pk >> 1) & 1) == 1, kc.SENTINEL)
+    return _reduce_occurrences_raw(canon, pk)
+
+
+def split_readset_blocks(rs, max_positions: int):
+    """Split a barcode-sorted ReadSet into blocks at barcode boundaries
+    (and pair boundaries for the unbarcoded prefix), each <= max_positions
+    flat bases where a cut allows it — so no barcode spans two blocks and
+    per-block nbc values sum exactly.  Returns a list of ReadSets (views)."""
+    if int(rs.offsets[-1]) <= max_positions:
+        return [rs]
+    # candidate cut points (read indices): barcode starts from bci; the
+    # unbarcoded block [bci[0], bci[1]) may be cut at any pair boundary
+    cuts = set(int(x) for x in rs.bci[1:-1])
+    cuts.update(range(0, int(rs.bci[1]) + 1, 2))
+    cuts.add(rs.n_reads)
+    blocks = []
+    start = prev = 0
+    for c in sorted(c for c in cuts if 0 < c <= rs.n_reads):
+        if int(rs.offsets[c] - rs.offsets[start]) > max_positions and prev > start:
+            blocks.append((start, prev))
+            start = prev
+        prev = c
+    blocks.append((start, rs.n_reads))
+    out = []
+    for lo, hi in blocks:
+        o0, o1 = int(rs.offsets[lo]), int(rs.offsets[hi])
+        out.append(ReadSet(
+            codes=rs.codes[o0:o1], offsets=rs.offsets[lo : hi + 1] - o0,
+            quals=rs.quals[o0:o1], bc=rs.bc[lo:hi],
+            # barcode ids stay global; only the read ranges are re-based
+            bci=np.clip(rs.bci - lo, 0, hi - lo), barcoded=rs.barcoded,
+        ))
+    return out
+
+
+def merge_raw_blocks(wa, wb, wc, count, stats, min_freq: int, min_bc: int) -> KmerTable:
+    """Concatenated per-block raw rows -> filtered KmerTable, one row per
+    distinct kmer (kept rows first, then sentinel rows).
+
+    Blocks are barcode-disjoint, so per kmer: count = sum, nbc = sum clamped
+    at 4095 (per-block values are clamped; the clamped sum equals the
+    single-block clamp), masks = OR, has_ign = OR; then the reference
+    filter.  K4 sorts the rows by their 3 words; the per-run sums and ORs
+    are index_add_ reductions over run ids; K2 compacts the kept runs'
+    7 columns."""
+    dev = wa.device
+    perm = kc.lex_argsort(wa, wb, wc)
+    ws = W3(wa, wb, wc).gather(perm)
+    count, stats = count[perm], stats[perm]
+    del perm
+    starts = seg.run_starts(ws.a, ws.b, ws.c)
+    rid = torch.cumsum(starts, 0) - 1
+    first = torch.nonzero(starts).squeeze(1)
+    nruns = first.shape[0]
+
+    def run_sum(x):
+        return torch.zeros(nruns, dtype=torch.int64, device=dev).index_add_(0, rid, x.long())
+
+    total = run_sum(count)
+    nbc = run_sum((stats >> 9) & 4095).clamp(max=4095)
+    ign = run_sum(stats & 1) > 0
+    lm = torch.zeros(nruns, dtype=torch.int64, device=dev)
+    rm = torch.zeros(nruns, dtype=torch.int64, device=dev)
+    for b in range(4):
+        lm |= (run_sum((stats >> (5 + b)) & 1) > 0).long() << b
+        rm |= (run_sum((stats >> (1 + b)) & 1) > 0).long() << b
+    del rid, count, stats
+    words = ws.gather(first)
+    keep = ~kc.is_sentinel(words) & (total >= min_freq) & (ign | (nbc >= min_bc))
+    i32 = torch.int32
+    n_valid, (a2, b2, c2, t2, n2, l2, r2) = seg.compact_sorted_words(
+        keep, words.a, words.b, words.c, total.to(i32), nbc.to(i32), lm.to(i32), rm.to(i32)
+    )
+    m = torch.arange(nruns, device=dev) < n_valid
+    return KmerTable(W3(a2, b2, c2).where(m, kc.SENTINEL), t2, n2, l2, r2, n_valid)
+
+
+def merge_row_limit(device: torch.device) -> int:
+    """Raw rows one device merge can take: the card's free memory (the
+    caching allocator's idle bytes included) over MERGE_BYTES_PER_ROW.
+    The CPU (the tests' device) sets no limit."""
+    if device.type != "cuda":
+        return 1 << 62
+    free, _ = torch.cuda.mem_get_info(device)
+    idle = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return (free + idle) // MERGE_BYTES_PER_ROW
+
+
+def count_readset_blocked(rs, device, min_freq: int | None = None, min_bc: int | None = None,
+                          max_positions: int | None = None, info: dict | None = None
+                          ) -> KmerTable:
+    """Blocked count: per-block unfiltered raw tables (distinct-kmer scale,
+    pulled to host memory block by block), then ONE device merge + filter
+    and the adjacency recompute.  Bit-identical to the single-block count.
+
+    max_positions: bases per block (BLOCK_POSITIONS when None).  info, when
+    given, receives blocks, block_rows and raw_rows."""
+    from ..dbg.build import trim_table
+
+    device = torch.device(device)
+    min_freq = MIN_FREQ if min_freq is None else min_freq
+    min_bc = MIN_BC if min_bc is None else min_bc
+    if _uniform_rl(rs) is None:
+        raise NotImplementedError(
+            "blocked counting of mixed-length readsets (the reference's "
+            "count_block_raw) is not ported: ROADMAP queue"
+        )
+    blocks = split_readset_blocks(rs, max_positions or BLOCK_POSITIONS)
+    # every block pads to the largest one, as the reference's shared shape
+    pad_pos = max(int(b.offsets[-1]) for b in blocks)
+    t = lambda a: torch.from_numpy(a).to(device)
+    parts = []
+    for b in blocks:
+        p = prepare_reads_packed(b, pad_to_positions=pad_pos)
+        raw = count_block_raw_packed(
+            t(p["codes_packed"]), t(p["glen"]), t(p["read_bc"]), p["n_reads"],
+            p["uniform_rl"], p["nbp"],
+        )
+        nv = int(raw.n_valid)
+        parts.append(tuple(x[:nv].cpu() for x in (*raw.words, raw.count, raw.stats)))
+        del raw
+    tot = sum(p[0].shape[0] for p in parts)
+    if info is not None:
+        info.update(blocks=len(blocks), block_rows=[p[0].shape[0] for p in parts],
+                    raw_rows=tot)
+    limit = merge_row_limit(device)
+    if tot > limit:
+        raise NotImplementedError(
+            f"{tot} raw rows exceed one device merge ({limit} rows at "
+            f"{MERGE_BYTES_PER_ROW} B/row); the partitioned host merge is not "
+            "ported: ROADMAP queue"
+        )
+    cols = [torch.cat([p[j] for p in parts]).to(device) for j in range(5)]
+    del parts
+    table = merge_raw_blocks(*cols, min_freq, min_bc)
+    del cols
+    return recompute_adjacencies(trim_table(table))
+
+
 def count_readset(rs, device, min_freq: int | None = None,
-                  min_bc: int | None = None) -> KmerTable:
+                  min_bc: int | None = None, info: dict | None = None) -> KmerTable:
     """ReadSet -> filtered, adjacency-true KmerTable on `device`.
 
-    The table is trimmed to the geometric-ladder row count before the
-    adjacency recompute, so its membership joins run at table scale."""
+    Readsets above BLOCK_POSITIONS bases take the blocked count (`info`
+    receives its block and row counts).  The table is trimmed to the
+    geometric-ladder row count before the adjacency recompute, so its
+    membership joins run at table scale."""
     from ..dbg.build import trim_table
 
     min_freq = MIN_FREQ if min_freq is None else min_freq
     min_bc = MIN_BC if min_bc is None else min_bc
     if int(rs.offsets[-1]) > BLOCK_POSITIONS:
-        raise NotImplementedError(
-            f"readset of {int(rs.offsets[-1])} bases exceeds one count block "
-            f"({BLOCK_POSITIONS}); the blocked count is ROADMAP item "
-            "'blocked count and pather'"
-        )
+        return count_readset_blocked(rs, device, min_freq, min_bc, info=info)
     inp = prepare_reads(rs, device)
     table = count_kmers(
         inp["codes_ext"], inp["pos_read"], inp["glen_pos"], inp["bc_pos"],

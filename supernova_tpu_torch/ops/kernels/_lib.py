@@ -47,6 +47,14 @@ SIGNATURES = {
     "sn_compact": [P, LL, INT, P, P, P, P, P, P, P],
     # w0, w1, w2, pk, n, min_freq, min_bc, keep, count, stats, stream
     "sn_run_reduce": [P, P, P, P, LL, INT, INT, P, P, P, P],
+    # key, n, and_or[2], stream
+    "sn_radix_bits": [P, LL, P, P],
+    # key, idx, n, init, kv, stream
+    "sn_radix_gather": [P, P, LL, INT, P, P],
+    # kv_in, idx_in, n, shift, counts, offsets, totals, kv_out, idx_out, stream
+    "sn_radix_pass": [P, P, LL, INT, P, P, P, P, P, P],
+    # idx (or NULL), n, perm, stream
+    "sn_radix_perm": [P, LL, P, P],
 }
 
 

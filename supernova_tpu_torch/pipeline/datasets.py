@@ -1,27 +1,35 @@
-"""The simulated readsets the port is run on at full size and at small size.
+"""The simulated readsets the port is run on, from one count block up to a
+genome that spans several.
 
-FULL is one count block of a real run: a 2 Mb diploid genome (het 0.001),
-600 barcodes x 10 molecules x 50 kb at coverage 0.3 per molecule, giving
-~600k reads of 150 bp, ~90M bases, ~45x (the reference's ideal is
-38-56x), just under BLOCK_POSITIONS.  SMALL is the 8 kb genome of the
-repo's verify notes.  Both go through the reference's jax-free simulator
+GENOME is the blocked slice: a 10 Mb diploid genome (het 0.001), 3,000
+barcodes x 10 molecules x 50 kb at coverage 0.3 per molecule, giving
+~3.0M reads of 150 bp, ~450M bases, ~45x (the reference's ideal is
+38-56x): five count blocks of at most BLOCK_POSITIONS bases, the block
+count of the repo's own 10 Mb validation (scripts/val10mb.sh).  FULL is one
+count block of the same shape: a 2 Mb genome, 600 barcodes, ~600k reads,
+~90M bases, just under BLOCK_POSITIONS.  SMALL is the 8 kb genome of the
+repo's verify notes.  All go through the port's copies of the simulator
 and ingest.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from supernova_tpu.ingest.ingest import ingest_sim
-from supernova_tpu.sim import genome as sim
+from ..ingest.ingest import ingest_sim
+from ..sim import genome as sim
 
+GENOME_SEED = 20261017
 FULL_SEED = 20261016
 SMALL_SEED = 7
-FULL = dict(genome_len=2_000_000, het=0.001, whitelist=16_384, n_barcodes=600,
-            molecules_per_barcode=10, molecule_len=50_000,
-            coverage_per_molecule=0.3, error_rate=0.002, bc_error_rate=0.02)
+GENOME = dict(genome_len=10_000_000, het=0.001, whitelist=16_384, n_barcodes=3_000,
+              molecules_per_barcode=10, molecule_len=50_000,
+              coverage_per_molecule=0.3, error_rate=0.002, bc_error_rate=0.02)
+FULL = dict(GENOME, genome_len=2_000_000, n_barcodes=600)
 SMALL = dict(genome_len=8_000, het=0.002, whitelist=256, n_barcodes=80,
              molecules_per_barcode=2, molecule_len=4_000,
              coverage_per_molecule=2.0, error_rate=0.002, bc_error_rate=0.02)
+DATASETS = {"GENOME": (GENOME, GENOME_SEED), "FULL": (FULL, FULL_SEED),
+            "SMALL": (SMALL, SMALL_SEED)}
 
 
 def simulate(cfg: dict, seed: int):

@@ -3,7 +3,9 @@
     ReadSet -> stage_ingest -> stage_count -> stage_graph -> stage_paths
             -> (KmerTable, BaseGraph, ReadPaths)
 
-as supernova_tpu/pipeline/run.py runs it on one device.  stage_count and
+as supernova_tpu/pipeline/run.py runs it on one device.  Readsets above
+one count block take the blocked count and pather; the count stage's
+record then holds its block and raw row counts.  stage_count and
 stage_graph write kmers.npz, stats/histogram_kmer_count.json and graph.npz
 in the reference's formats and log kmers_distinct, n_edges, edge_N50 and
 assembly_checksum.  stage_paths stops at the raw pather output: the
@@ -19,18 +21,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from supernova_tpu.ingest.ingest import valid_barcode_fraction
-from supernova_tpu.ingest.reads import ReadSet
-from supernova_tpu.stats import gems as sgems
-from supernova_tpu.stats import histograms as hist
-from supernova_tpu.stats.logger import StatLogger, n50
-
 from .. import convert
 from ..align import pather
 from ..core.device import resolve_device
 from ..dbg import build as dbuild
 from ..dbg import graph as dgraph
+from ..ingest.ingest import valid_barcode_fraction
+from ..ingest.reads import ReadSet
 from ..kmer import count as kcount
+from ..stats import gems as sgems
+from ..stats import histograms as hist
+from ..stats.logger import StatLogger, n50
 from ..stats.trace import stage
 
 log = logging.getLogger("supernova_tpu_torch")
@@ -120,7 +121,8 @@ class Pipeline:
         return rs
 
     def stage_count(self, rs: ReadSet) -> kcount.KmerTable:
-        table = dbuild.trim_table(kcount.count_readset(rs, self.device))
+        table = dbuild.trim_table(kcount.count_readset(
+            rs, self.device, info=self.stage_records.setdefault("count", {})))
         host = convert.table_to_numpy(table)
         n = host.n_valid
         self.stats.log("kmers_distinct", n, "distinct filtered 48-mers", stage="count")

@@ -1,11 +1,12 @@
-"""Per-stage device profile of the full slice on one GPU.
+"""Per-stage device profile of the slice on one GPU.
 
-    python3 -m supernova_tpu_torch.stats.profile_slice OUT.txt
+    python3 -m supernova_tpu_torch.stats.profile_slice OUT.txt [DATASET]
 
-Builds the kernels, runs the 8 kb slice once on CUDA as a warm-up, times
-the host preparation steps alone, then runs each stage of
-Pipeline(device="cuda") on the full dataset (pipeline/datasets.py) inside
-its own torch.profiler.profile(CPU, CUDA).  Per stage it writes the wall
+DATASET is a name in pipeline/datasets.py DATASETS (FULL, one count block,
+by default; GENOME for the blocked count and pather).  Builds the kernels,
+runs the 8 kb slice once on CUDA as a warm-up, times the host preparation
+steps alone, then runs each stage of Pipeline(device="cuda") on the
+dataset inside its own torch.profiler.profile(CPU, CUDA).  Per stage it writes the wall
 time, the device busy time (the union of the device events' intervals),
 idle share = 1 - busy / wall, peak device memory, and the
 profile's top operators by self device time.  Everything printed is also
@@ -41,7 +42,7 @@ def device_busy_s(prof) -> float:
     return busy / 1e6
 
 
-def main(out_path: str) -> int:
+def main(out_path: str, dataset: str = "FULL") -> int:
     if not torch.cuda.is_available():
         print("profile_slice: torch.cuda.is_available() is False")
         return 2
@@ -53,16 +54,17 @@ def main(out_path: str) -> int:
         out.flush()
 
     dev = torch.device("cuda", 0)
-    emit(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}")
+    emit(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}, dataset {dataset}")
     _lib.library()
-    rs = datasets.simulate(datasets.FULL, datasets.FULL_SEED)
+    rs = datasets.simulate(*datasets.DATASETS[dataset])
     with tempfile.TemporaryDirectory() as d:
         Pipeline(d, device=dev).run(datasets.simulate(datasets.SMALL, datasets.SMALL_SEED))
 
-    t = time.perf_counter()
-    kcount.prepare_reads(rs, dev)
-    torch.cuda.synchronize()
-    emit(f"host prepare_reads (+H2D): {time.perf_counter() - t:.3f} s")
+    if int(rs.offsets[-1]) <= kcount.BLOCK_POSITIONS:  # the blocked count packs every block
+        t = time.perf_counter()
+        kcount.prepare_reads(rs, dev)
+        torch.cuda.synchronize()
+        emit(f"host prepare_reads (+H2D): {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
     kcount.prepare_reads_packed(rs)
     emit(f"host prepare_reads_packed: {time.perf_counter() - t:.3f} s")
@@ -93,9 +95,10 @@ def main(out_path: str) -> int:
         run_stage("paths", pl.stage_paths, bg, rs2)
         emit(str({k: pl.stats.get(k)
                   for k in ("kmers_distinct", "n_edges", "edge_N50", "placed_perc")}))
+        emit(f"count: {pl.stage_records['count']}")
     out.close()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(*sys.argv[1:3]))

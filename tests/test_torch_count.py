@@ -189,6 +189,9 @@ def test_estimate_coverage_and_rev4(readsets):
 
 
 def test_count_above_one_block_raises(readsets, monkeypatch):
-    monkeypatch.setattr(kcount, "BLOCK_POSITIONS", 100)
-    with pytest.raises(NotImplementedError, match="blocked count"):
-        kcount.count_readset(readsets["barcoded"], "cpu")
+    """Above one block a uniform-length readset takes the blocked count
+    (tests/test_torch_blocked.py); a mixed-length one raises, since its
+    blocked count is not ported."""
+    monkeypatch.setattr(kcount, "BLOCK_POSITIONS", 10_000)
+    with pytest.raises(NotImplementedError, match="mixed-length"):
+        kcount.count_readset(readsets["mixed"], "cpu")

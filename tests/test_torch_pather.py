@@ -90,10 +90,12 @@ def test_select_best_run_and_overflow(world, max_path):
 
 
 def test_unported_readsets_raise(world, monkeypatch):
+    """Mixed-length readsets need the general pather, in one block or
+    above it (the uniform blocked pather: tests/test_torch_blocked.py)."""
     rs, _, pbg = world
     with pytest.raises(NotImplementedError, match="general pather"):
         pather.path_readset(pbg, mixed_length_readset(), "cpu")
     monkeypatch.setattr(kcount, "BLOCK_POSITIONS", 1000)
-    with pytest.raises(NotImplementedError, match="blocked pather"):
-        pather.path_readset(pbg, rs, "cpu")
+    with pytest.raises(NotImplementedError, match="general pather"):
+        pather.path_readset(pbg, mixed_length_readset(), "cpu")
     assert isinstance(pbg.device_arrays("cpu")["node_edge"], torch.Tensor)

@@ -115,7 +115,7 @@ def test_stats_match_reference(runs):
 
 
 def test_cpu_run_launches_no_kernel(runs):
-    assert kernels.launch_counts() == {"kmer_extract": 0, "compact": 0, "run_reduce": 0}
+    assert kernels.launch_counts() == {"kmer_extract": 0, "compact": 0, "run_reduce": 0, "sort": 0}
 
 
 def test_cuda_device_raises_without_a_card(tmp_path):
@@ -126,18 +126,19 @@ def test_cuda_device_raises_without_a_card(tmp_path):
 
 
 def test_port_never_imports_jax():
-    """Importing the port and running a count leaves jax out of
-    sys.modules (needs its own process: conftest imports jax)."""
+    """Importing the port and running a count, single-block and blocked,
+    leaves jax and every supernova_tpu module out of sys.modules (needs its
+    own process: conftest imports jax and the JAX package)."""
     code = """
 import sys
 import numpy as np
-from supernova_tpu.sim import genome as sim
-from supernova_tpu.ingest.reads import build_readset
+from supernova_tpu_torch.sim import genome as sim
+from supernova_tpu_torch.ingest.reads import build_readset
 import supernova_tpu_torch.pipeline.run
 import supernova_tpu_torch.pipeline.datasets
 import supernova_tpu_torch.stats.profile_slice
 import supernova_tpu_torch.convert
-from supernova_tpu_torch.kmer.count import count_readset
+from supernova_tpu_torch.kmer.count import count_readset, count_readset_blocked
 rng = np.random.default_rng(0)
 g = sim.random_genome(rng, 700)
 reads = [g[s:s + 150].copy() for s in range(0, 480, 30)]
@@ -145,7 +146,11 @@ quals = [np.full(150, 37, np.uint8) for _ in reads]
 rs = build_readset(reads, quals, np.zeros(len(reads) // 2, np.int32), n_barcodes=0, barcoded=False)
 t = count_readset(rs, "cpu", min_freq=1)
 assert int(t.n_valid) > 0
-print("jax" in sys.modules, sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")))
+info = {}
+tb = count_readset_blocked(rs, "cpu", min_freq=1, max_positions=600, info=info)
+assert int(tb.n_valid) == int(t.n_valid) and info["blocks"] >= 3
+print("jax" in sys.modules, sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "supernova_tpu")))
 """
     env = {k: v for k, v in __import__("os").environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)

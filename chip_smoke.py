@@ -10,9 +10,13 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
   3. each kernel against its plain PyTorch twin on the card, at the shapes
      one count block gives it: K1 on the ~90M-code read block, K4 on the
      ~62M-row x 4-key occurrence sort, K3 and K2 on the sorted occurrence
-     stream (K2 with 5 columns).  All outputs are integers and must be
-     EXACTLY equal; median times by CUDA events after a warm-up, beside
-     the bound (bytes the function must move over 3.35 TB/s);
+     stream (K2 with 5 columns), and K3 again on that stream with ~10% of
+     its rows folded into runs of 100k-1M rows.  All outputs are integers
+     and must be EXACTLY equal; median times by CUDA events after a
+     warm-up, beside the bound (bytes the function must move over 3.35
+     TB/s) and, for K4 and K2, one PyTorch call computing the same function
+     (a yardstick the port never calls); K4's and K3's launches are listed
+     one by one with their device times (stats/kernel_phases.py);
   4. the slice on an 8 kb genome on CUDA and on the CPU plain path: the
      KmerTable, every BaseGraph array and ReadPaths[:n_reads] identical;
   5. the slice at one block — a 2 Mb diploid genome (het 0.001), 600
@@ -25,7 +29,8 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      barcodes, ~3M reads, ~450M bases, ~45x), which takes the blocked
      count (>= 2 blocks, one device merge) and the blocked pather;
   7. K4 against its twin at the genome's merge shape (its raw row count,
-     3 keys), and the merge's peak device bytes per raw row;
+     3 keys) and at its graph's chain-order shape (2 keys, two nodes a
+     kmer), and the merge's peak device bytes per raw row;
   8. no module of the JAX package (or jax) was imported.
 Then one JSON line with the kernels (launches from the genome phase), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}.  Exits
@@ -93,7 +98,9 @@ def max_abs_err(torch, pairs):
 
 
 def check_sort(torch, keys, shape):
-    """K4 against its twin on `keys`: exactly equal permutations."""
+    """K4 against its twin on `keys`: exactly equal permutations; the
+    yardstick is torch.sort of the first two keys packed into one int64
+    (the 2-key lexicographic argsort in one call; packed beforehand)."""
     from supernova_tpu_torch.ops.kernels import sort as k4
 
     got = k4.lex_argsort_cuda(*keys)
@@ -102,22 +109,66 @@ def check_sort(torch, keys, shape):
     err = max_abs_err(torch, [(got, ref)])
     check(torch.equal(got, ref), f"K4 differs from plain at {shape}")
     rows = keys[0].shape[0]
-    return dict(
+    packed = k4._pair(keys[0], keys[1])
+    res = dict(
         shape=shape, max_abs_err=err,
         ms=median_ms(torch, lambda: k4.lex_argsort_cuda(*keys)),
         plain_ms=median_ms(torch, lambda: k4.lex_argsort_plain(*keys)),
         # read every key once, write the int64 permutation
         bound_ms=bound_ms(rows * 8 * (len(keys) + 1)),
-    ), got
+        library_ms=median_ms(torch, lambda: torch.sort(packed, stable=True).indices),
+        library_shape=f"torch.sort(stable=True) of keys 0-1 packed in one int64, {rows} rows",
+    )
+    print_kernel("sort", res)
+    print_launches(torch, "sort", lambda: k4.lex_argsort_cuda(*keys))
+    return res, got
+
+
+def print_launches(torch, name, fn):
+    """Every device launch of one call of fn, in order, with its device
+    time (median of 5 calls, torch.profiler), then the sums by kernel."""
+    from supernova_tpu_torch.stats import kernel_phases as kp
+
+    times = kp.launch_times(fn)
+    if not times:
+        print(f"[{name} launches] the profiler captured no whole call")
+        return
+    print(f"[{name} launches] " + ", ".join(f"{i}:{n} {ms:.3f}" for i, (n, ms) in enumerate(times)))
+    for kname, (nl, ms) in kp.by_name(times).items():
+        print(f"[{name} launches] sum {kname}: {nl} launches, {ms:.3f} ms")
+
+
+def fold_long_runs(ws, pk):
+    """The sorted stream with ~10% of its rows folded into runs of 100k-1M
+    rows: each chosen segment takes its first row's words, which keeps the
+    stream sorted (K3's adversarial input: a repeat seen in many reads)."""
+    import numpy as np
+
+    frac = 0.1
+    rng = np.random.default_rng(3)
+    a, b, c = (w.clone() for w in ws)
+    rows = a.shape[0]
+    folded, at = 0, 0
+    gap = int(rows * (1 - frac) / 12)
+    while folded < frac * rows:
+        length = int(rng.integers(100_000, 1_000_001))
+        at += int(rng.integers(gap // 2, gap))
+        if at + length > rows:
+            break
+        for w in (a, b, c):
+            w[at : at + length] = w[at].clone()
+        folded += length
+        at += length
+    return (a, b, c, pk), folded
 
 
 def phase_kernels(torch, rs, dev):
     """K1/K4/K3/K2 against their plain twins at one count block's shapes."""
-    from supernova_tpu_torch.core import kmer_codec as kc
     from supernova_tpu_torch.kmer import count as kcount
     from supernova_tpu_torch.ops.kernels import compact as k2
     from supernova_tpu_torch.ops.kernels import kmer_extract as k1
     from supernova_tpu_torch.ops.kernels import run_reduce as k3
+    from supernova_tpu_torch.stats import kernel_phases
 
     inp = kcount.prepare_reads(rs, dev)
     codes, n = inp["codes_ext"], inp["pos_read"].shape[0]
@@ -135,38 +186,43 @@ def phase_kernels(torch, rs, dev):
         # read the codes, write three int64 words per position
         bound_ms=bound_ms(codes.numel() * 4 + n * 3 * 8),
     )
-    del got, ref
+    print_kernel("kmer_extract", res["kmer_extract"])
+    del got, ref, inp, codes
 
     # the sorted occurrence stream after the tail cut (count_kmers' input
     # to the reduction)
-    canon, bc, lm, rm, valid = kcount.extract_occurrences(
-        codes, inp["pos_read"], inp["glen_pos"], inp["bc_pos"]
-    )
-    pk = kcount.pack_occurrence_attrs(bc, lm, rm, valid)
-    rl = inp["uniform_rl"]
-    a_, b_, c_, pk = kcount.uniform_tail_cut(rl, canon.a, canon.b, canon.c, pk)
-    canon = kc.W3(a_, b_, c_).where(((pk >> 1) & 1) == 1, kc.SENTINEL)
-    del inp, bc, lm, rm, valid, a_, b_, c_
+    canon, pk = kernel_phases.occurrence_stream(rs, dev)
     rows = canon.a.shape[0]
     res["sort"], perm = check_sort(torch, (*canon, pk), f"{rows} rows x 4 keys")
     ws, pk = canon.gather(perm), pk[perm]
     del canon, perm
     mf, mb = kcount.MIN_FREQ, kcount.MIN_BC
 
-    got = k3.run_reduce_cuda(ws.a, ws.b, ws.c, pk, mf, mb)
-    ref = k3.run_reduce_plain(ws.a, ws.b, ws.c, pk, mf, mb)
-    torch.cuda.synchronize()
-    err = max_abs_err(torch, zip(got, ref))
-    check(all(torch.equal(a, b) for a, b in zip(got, ref)), "K3 differs from plain")
+    def run_k3(cols, label):
+        got = k3.run_reduce_cuda(*cols, mf, mb)
+        ref = k3.run_reduce_plain(*cols, mf, mb)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)), f"K3 differs from plain ({label})")
+        return got, max_abs_err(torch, zip(got, ref)), median_ms(
+            torch, lambda: k3.run_reduce_cuda(*cols, mf, mb))
+
+    got, err, ms = run_k3((*ws, pk), "occurrence stream")
     res["run_reduce"] = dict(
-        shape=f"{rows} rows", max_abs_err=err,
-        ms=median_ms(torch, lambda: k3.run_reduce_cuda(ws.a, ws.b, ws.c, pk, mf, mb)),
+        shape=f"{rows} rows", max_abs_err=err, ms=ms,
         plain_ms=median_ms(torch, lambda: k3.run_reduce_plain(ws.a, ws.b, ws.c, pk, mf, mb)),
         # read three words and the attributes, write keep, count and stats
         bound_ms=bound_ms(rows * (4 * 8 + 1 + 4 + 4)),
     )
+    print_kernel("run_reduce", res["run_reduce"])
+    print_launches(torch, "run_reduce", lambda: k3.run_reduce_cuda(ws.a, ws.b, ws.c, pk, mf, mb))
+    adv, folded = fold_long_runs(ws, pk)
+    _, adv_err, adv_ms = run_k3(adv, "long runs")
+    res["run_reduce"]["adversarial_ms"] = adv_ms
+    print(f"[kernels] run_reduce: {rows} rows, {folded} of them in runs of 100k-1M rows: exact "
+          f"(max_abs_err {adv_err}); kernel {adv_ms:.3f} ms = "
+          f"{adv_ms / res['run_reduce']['ms']:.3f} x the occurrence stream's")
+    del adv
     keep, count, stats = got
-    del ref
 
     cols = (ws.a, ws.b, ws.c, count, stats)
     nv_k, out_k = k2.compact_cuda(keep, *cols)
@@ -183,16 +239,18 @@ def phase_kernels(torch, rs, dev):
         plain_ms=median_ms(torch, lambda: k2.compact_plain(keep, *cols)),
         # read the mask, read and write the kept rows of every column
         bound_ms=bound_ms(rows + 2 * nv * sum(c.element_size() for c in cols)),
+        library_ms=median_ms(torch, lambda: [c[keep] for c in cols]),
+        library_shape=f"c[keep] for each of the {len(cols)} columns",
     )
-    for name, r in res.items():
-        print_kernel(name, r)
+    print_kernel("compact", res["compact"])
     return res
 
 
 def print_kernel(name, r):
+    lib = f", library {r['library_ms']:.3f} ms ({r['library_shape']})" if "library_ms" in r else ""
     print(f"[kernels] {name}: {r['shape']}: exact (max_abs_err {r['max_abs_err']}); "
           f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-          f"bound {r['bound_ms']:.3f} ms")
+          f"bound {r['bound_ms']:.3f} ms{lib}")
 
 
 def phase_small_slice(torch, rs):
@@ -260,7 +318,7 @@ def phase_slice(torch, rs, tag, min_blocks=None):
     print(f"[{tag}] BaseGraph.validate() passed; table strictly ascending over {n} rows")
     for name, c in launches.items():
         check(c > 0, f"kernel {name} was not launched by the main path")
-    return launches, crec
+    return launches, crec, n
 
 
 def merge_shaped_input(torch, rows, distinct, seed):
@@ -284,8 +342,7 @@ def phase_merge(torch, raw_rows):
 
     torch.cuda.empty_cache()
     words, count, stats = merge_shaped_input(torch, raw_rows, raw_rows // 2, 1)
-    res, _ = check_sort(torch, words, f"{raw_rows} rows x 3 keys (merge)")
-    print_kernel("sort", res)
+    check_sort(torch, words, f"{raw_rows} rows x 3 keys (merge)")
     del words, count, stats
     # peak bytes per row of merge_raw_blocks, its inputs included, also at
     # the worst case for its memory: (nearly) every row a distinct kmer
@@ -305,6 +362,28 @@ def phase_merge(torch, raw_rows):
         check(per_row <= kcount.MERGE_BYTES_PER_ROW,
               f"merge took {per_row:.1f} B/row > MERGE_BYTES_PER_ROW")
         del words, count, stats, table
+
+
+def phase_graph_sort(torch, kmers):
+    """K4 at the graph's chain-order sort (dbg/build.py materialize_edges:
+    lex_argsort(head, dist) over two oriented nodes a kmer): synthetic
+    chains of 1-360 nodes in a random node order, keys (chain head's node
+    id, distance from the head)."""
+    rows = 2 * kmers
+    g = torch.Generator(device="cuda").manual_seed(4)
+    order = torch.randperm(rows, device="cuda", generator=g)
+    lengths = torch.randint(1, 361, (rows // 120 + 1,), device="cuda", generator=g)
+    starts = torch.cumsum(lengths, 0) - lengths
+    starts = starts[starts < rows]
+    is_start = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    is_start[starts] = True
+    chain = torch.cumsum(is_start.long(), 0) - 1
+    pos = torch.arange(rows, device="cuda")
+    head = torch.empty(rows, dtype=torch.int64, device="cuda")
+    dist = torch.empty_like(head)
+    head[order] = order[starts[chain]]
+    dist[order] = pos - starts[chain]
+    check_sort(torch, (head, dist), f"{rows} rows x 2 keys (graph chain order)")
 
 
 def main() -> int:
@@ -348,9 +427,11 @@ def main() -> int:
     rs_genome = datasets.simulate(datasets.GENOME, datasets.GENOME_SEED)
     print(f"[data] genome: {rs_genome.n_reads} reads, {int(rs_genome.offsets[-1])} bases "
           f"simulated in {time.perf_counter() - t0:.1f} s")
-    launches, crec = phase_slice(torch, rs_genome, "genome", min_blocks=2)
+    launches, crec, kmers = phase_slice(torch, rs_genome, "genome", min_blocks=2)
     del rs_genome
     phase_merge(torch, crec["raw_rows"])
+    torch.cuda.empty_cache()
+    phase_graph_sort(torch, kmers)
 
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "supernova_tpu"))
     check(not jax_mods, f"the port imported {jax_mods[:5]}")
@@ -360,7 +441,9 @@ def main() -> int:
         dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
              launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
-             library_ms=None, shape=r["shape"])
+             library_ms=r.get("library_ms"), library_shape=r.get("library_shape"),
+             shape=r["shape"], **({"adversarial_ms": r["adversarial_ms"]}
+                                  if "adversarial_ms" in r else {}))
         for name, r in kres.items()
     ]}))
     print(f"[time] chip_smoke {time.perf_counter() - t_start:.1f} s")

@@ -45,16 +45,16 @@ SIGNATURES = {
     # valid, n, ncols, in_ptrs[8], out_ptrs[8], esizes[8], counts,
     # offsets, n_valid, stream
     "sn_compact": [P, LL, INT, P, P, P, P, P, P, P],
-    # w0, w1, w2, pk, n, min_freq, min_bc, keep, count, stats, stream
-    "sn_run_reduce": [P, P, P, P, LL, INT, INT, P, P, P, P],
-    # key, n, and_or[2], stream
-    "sn_radix_bits": [P, LL, P, P],
-    # key, idx, n, init, kv, stream
-    "sn_radix_gather": [P, P, LL, INT, P, P],
-    # kv_in, idx_in, n, shift, counts, offsets, totals, kv_out, idx_out, stream
-    "sn_radix_pass": [P, P, LL, INT, P, P, P, P, P, P],
-    # idx (or NULL), n, perm, stream
-    "sn_radix_perm": [P, LL, P, P],
+    # w0, w1, w2, pk, n, min_freq, min_bc, tails, tail_slots, keep, count,
+    # stats, stream
+    "sn_run_reduce": [P, P, P, P, LL, INT, INT, P, LL, P, P, P, P],
+    "sn_run_reduce_tile_rows": [],
+    "sn_radix_tile_rows": [],
+    # key_ptrs[nkeys], nkeys, n, hist, stream
+    "sn_radix_hist": [P, INT, LL, P, P],
+    # src, write_keys, write_perm, kv_in, idx_in, column, n, shift, bins,
+    # counter, status, status_words, tag, kv_out, idx_out, perm_out, stream
+    "sn_radix_onesweep": [INT, INT, INT, P, P, P, LL, INT, P, P, P, LL, INT, P, P, P, P],
 }
 
 

@@ -78,7 +78,8 @@ def run_reduce_plain(w0, w1, w2, pk, min_freq: int, min_bc: int):
 
 
 def run_reduce_cuda(w0, w1, w2, pk, min_freq: int, min_bc: int):
-    """Launch K3: four contiguous (n,) int64 columns on one card."""
+    """Launch K3 (a tail pass over the tiles, then the segmented reduction)
+    on four contiguous (n,) int64 columns on one card."""
     dev = w0.device
     n = w0.shape[0]
     for name, t in (("w0", w0), ("w1", w1), ("w2", w2), ("pk", pk)):
@@ -89,10 +90,12 @@ def run_reduce_cuda(w0, w1, w2, pk, min_freq: int, min_bc: int):
     if n == 0:
         return keep, count, stats
     lib = _lib.library()
+    tails = torch.empty((-(-n // lib.sn_run_reduce_tile_rows()), 4), dtype=torch.int32,
+                        device=dev)
     _lib.check(
         lib.sn_run_reduce(
             w0.data_ptr(), w1.data_ptr(), w2.data_ptr(), pk.data_ptr(), n,
-            int(min_freq), int(min_bc),
+            int(min_freq), int(min_bc), tails.data_ptr(), tails.shape[0],
             keep.data_ptr(), count.data_ptr(), stats.data_ptr(),
             _lib.stream_ptr(dev),
         ),

@@ -11,12 +11,13 @@ permutation.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _lib
 
 MAX_KEYS = 6
-TILE = 4096  # rows per tile of a radix pass (csrc/radix_sort.cu)
 RADIX = 256
 DIGITS = 4  # 8-bit digits of a 32-bit key
 
@@ -47,56 +48,70 @@ def live_digits(and_bits: int, or_bits: int) -> list[int]:
     """The 8-bit digits (0 = least significant) of a 32-bit key that differ
     between rows, from the AND and the OR of its rows: a digit whose bits
     agree in both is the same in every row, and its pass would leave the
-    order as it is."""
+    order as it is.  The rule live_digits_from_hist is held to in tests."""
     vary = (and_bits ^ or_bits) & 0xFFFFFFFF
     return [d for d in range(DIGITS) if (vary >> (8 * d)) & 0xFF]
+
+
+def live_digits_from_hist(hist: torch.Tensor, n: int) -> list[int]:
+    """The same digits from a key's (DIGITS, RADIX) histogram of n rows: a
+    digit is live unless one bin holds every row."""
+    return [d for d in range(DIGITS) if int(hist[d].max()) < n]
+
+
+def plan_passes(live: list[list[int]]) -> list[tuple[int, int]]:
+    """(key, digit) of every pass, keys from the last to the first, digits
+    from the least significant: LSD order, so the stable passes leave the
+    rows sorted by the first key, ties by the next, and so on."""
+    return [(j, d) for j in reversed(range(len(live))) for d in live[j]]
 
 
 def lex_argsort_cuda(*keys):
     """Launch K4 on contiguous (n,) int64 keys on one card, n < 2^31.
 
-    Reduces every key to the AND and the OR of its rows first and reads
-    them back (one synchronisation per sort): a digit whose bits agree in
-    both is the same in every row and needs no pass, and a key with no
-    other digit is never staged."""
+    One histogram launch counts every digit of every key; the histograms
+    come back in one copy (the sort's one synchronisation), and each digit
+    whose bins are not all in one gets one onesweep pass."""
     dev = keys[0].device
     n = keys[0].shape[0]
     for j, k in enumerate(keys):
         _lib.require(k, f"key {j}", torch.int64, dev, n)
     if n >= 1 << 31:
         raise ValueError(f"{n} rows: the radix sort carries 32-bit row indices")
-    perm = torch.empty(n, dtype=torch.int64, device=dev)
     if n == 0:
-        return perm
+        return torch.empty(0, dtype=torch.int64, device=dev)
     lib = _lib.library()
     stream = _lib.stream_ptr(dev)
-    and_or = torch.empty((len(keys), 2), dtype=torch.int32, device=dev)
-    for j, k in enumerate(keys):
-        _lib.check(lib.sn_radix_bits(k.data_ptr(), n, and_or[j].data_ptr(), stream), "sort")
-    live = [live_digits(a, o) for a, o in and_or.cpu().tolist()]
+    hist = torch.empty((len(keys), DIGITS, RADIX), dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_uint64 * len(keys))(*(k.data_ptr() for k in keys))
+    _lib.check(lib.sn_radix_hist(ctypes.addressof(ptrs), len(keys), n, hist.data_ptr(), stream),
+               "sort")
+    lex_argsort.launches += 1
+    passes = plan_passes([live_digits_from_hist(h, n) for h in hist.cpu()])
+    if not passes:
+        return torch.arange(n, dtype=torch.int64, device=dev)
+    ntiles = -(-n // lib.sn_radix_tile_rows())
+    # one status word per (tile, digit value), then one tile counter per pass
+    scratch = torch.zeros(ntiles * RADIX + len(passes), dtype=torch.int64, device=dev)
+    counters = scratch.data_ptr() + 8 * ntiles * RADIX
+    perm = torch.empty(n, dtype=torch.int64, device=dev)
     kv = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
     idx = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
-    ntiles = -(-n // TILE)
-    counts = torch.empty(RADIX * ntiles, dtype=torch.int32, device=dev)
-    offsets = torch.empty_like(counts)
-    totals = torch.empty(RADIX, dtype=torch.int32, device=dev)
-    cur, staged = 0, False
-    for j in reversed(range(len(keys))):
-        if not live[j]:
-            continue
-        _lib.check(lib.sn_radix_gather(keys[j].data_ptr(), idx[cur].data_ptr(), n,
-                                       int(not staged), kv[cur].data_ptr(), stream), "sort")
-        staged = True
-        for d in live[j]:
-            _lib.check(lib.sn_radix_pass(
-                kv[cur].data_ptr(), idx[cur].data_ptr(), n, 8 * d,
-                counts.data_ptr(), offsets.data_ptr(), totals.data_ptr(),
-                kv[1 - cur].data_ptr(), idx[1 - cur].data_ptr(), stream,
-            ), "sort")
-            cur = 1 - cur
-    _lib.check(lib.sn_radix_perm(idx[cur].data_ptr() if staged else None, n,
-                                 perm.data_ptr(), stream), "sort")
-    lex_argsort.launches += 1
+    cur = 0
+    for p, (j, d) in enumerate(passes):
+        first = p == 0 or passes[p - 1][0] != j
+        last = p + 1 == len(passes) or passes[p + 1][0] != j
+        # the sort's first pass reads its key in row order, a later key's
+        # first pass gathers it by the indices so far, other passes read
+        # the staged 32-bit keys
+        src = 1 if p == 0 else 2 if first else 0
+        _lib.check(lib.sn_radix_onesweep(
+            src, int(not last), int(p + 1 == len(passes)),
+            kv[cur].data_ptr(), idx[cur].data_ptr(), keys[j].data_ptr(), n, 8 * d,
+            hist[j, d].data_ptr(), counters + 8 * p, scratch.data_ptr(), ntiles * RADIX, p + 1,
+            kv[1 - cur].data_ptr(), idx[1 - cur].data_ptr(), perm.data_ptr(), stream,
+        ), "sort")
+        cur = 1 - cur
     return perm
 
 

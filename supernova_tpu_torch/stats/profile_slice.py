@@ -8,8 +8,9 @@ runs the 8 kb slice once on CUDA as a warm-up, times the host preparation
 steps alone, then runs each stage of Pipeline(device="cuda") on the
 dataset inside its own torch.profiler.profile(CPU, CUDA).  Per stage it writes the wall
 time, the device busy time (the union of the device events' intervals),
-idle share = 1 - busy / wall, peak device memory, and the
-profile's top operators by self device time.  Everything printed is also
+idle share = 1 - busy / wall, peak device memory, the device time and
+launches of each of the port's kernels K1-K4, and the profile's top
+operators by self device time.  Everything printed is also
 written to OUT.txt.
 """
 from __future__ import annotations
@@ -26,6 +27,15 @@ from ..kmer import count as kcount
 from ..ops.kernels import _lib
 from ..pipeline import datasets
 from ..pipeline.run import Pipeline
+from .kernel_phases import short_name
+
+# the device functions of each of the port's kernels (csrc/*.cu)
+PORT_KERNELS = {
+    "K1 kmer_extract": ("kmer_extract_kernel",),
+    "K2 compact": ("count_kernel", "scan_kernel", "scatter_kernel"),
+    "K3 run_reduce": ("tail_kernel", "run_reduce_kernel"),
+    "K4 sort": ("hist_kernel", "onesweep_kernel"),
+}
 
 
 def device_busy_s(prof) -> float:
@@ -40,6 +50,20 @@ def device_busy_s(prof) -> float:
             busy += e - max(s, end)
             end = e
     return busy / 1e6
+
+
+def port_kernels(prof) -> str:
+    """Device time and launches of each of the port's kernels."""
+    sums = {k: [0.0, 0] for k in PORT_KERNELS}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = short_name(e.name)
+        for k, fns in PORT_KERNELS.items():
+            if name in fns:
+                sums[k][0] += (e.time_range.end - e.time_range.start) / 1e3
+                sums[k][1] += 1
+    return ", ".join(f"{k} {ms:.3f} ms ({n} device launches)" for k, (ms, n) in sums.items())
 
 
 def main(out_path: str, dataset: str = "FULL") -> int:
@@ -82,6 +106,7 @@ def main(out_path: str, dataset: str = "FULL") -> int:
             emit(f"=== stage {name}: wall {wall:.3f} s, device busy {busy:.3f} s, "
                  f"idle share {1 - busy / wall:.3f}, "
                  f"peak {pl.stage_records[name]['peak_gb']:.3f} GiB")
+            emit(f"port kernels: {port_kernels(prof)}")
             emit(prof.key_averages().table(sort_by="self_device_time_total", row_limit=14,
                           max_name_column_width=60))
             return res

@@ -91,17 +91,91 @@ def sort_keys(rng, n, n_keys, kind, dev):
     return keys
 
 
+def k4_tile():
+    return _lib.library().sn_radix_tile_rows()
+
+
+def k3_tile():
+    return _lib.library().sn_run_reduce_tile_rows()
+
+
 @pytest.mark.parametrize("kind", ["random", "ties", "constant_digits", "all_equal"])
-@pytest.mark.parametrize("n", [0, 1, 1000, (1 << 20) + 7])
+@pytest.mark.parametrize("n", [0, 1, 1000, "tile-1", "tile", "tile+1", (1 << 20) + 7])
 def test_sort_matches_plain(dev, n, kind):
     """K4 equals its twin exactly (the stable permutation is unique) for
-    1-6 keys."""
+    1-6 keys, at the edges of the kernel's tile included."""
+    if isinstance(n, str):
+        n = k4_tile() + {"tile-1": -1, "tile": 0, "tile+1": 1}[n]
     rng = np.random.default_rng(n)
     for n_keys in range(1, k4.MAX_KEYS + 1):
         keys = sort_keys(rng, n, n_keys, kind, dev)
         got = k4.lex_argsort(*keys)
         assert got.dtype == torch.int64 and got.device.type == "cuda"
         assert torch.equal(got, k4.lex_argsort_plain(*keys)), (n_keys, kind)
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "constant_digits"])
+def test_sort_matches_plain_thousands_of_tiles(dev, kind):
+    """n = 2^24 + 3: thousands of onesweep tiles look back over each other."""
+    n = (1 << 24) + 3
+    rng = np.random.default_rng(24)
+    for n_keys in (1, 2, 4):
+        keys = sort_keys(rng, n, n_keys, kind, dev)
+        assert torch.equal(k4.lex_argsort(*keys), k4.lex_argsort_plain(*keys)), (n_keys, kind)
+
+
+def test_sorts_back_to_back(dev):
+    """Sorts of different n one after another: a look-back status word or a
+    tile counter left over from the previous sort would misplace rows."""
+    rng = np.random.default_rng(5)
+    t = k4_tile()
+    for n in ((1 << 22) + 11, 3 * t + 5, (1 << 21) - 1, t * 40):
+        keys = sort_keys(rng, n, 3, "random", dev)
+        got = k4.lex_argsort(*keys)
+        assert torch.equal(got, k4.lex_argsort_plain(*keys)), n
+
+
+def stream_with_runs(rng, lengths, sentinel_rows, dev):
+    """Sorted (w0, w1, w2, pk) stream whose runs have the given lengths,
+    then `sentinel_rows` rows on the all-ones words."""
+    ids = np.repeat(np.arange(len(lengths)), lengths)
+    n = len(ids) + sentinel_rows
+    valid = rng.random(n) < 0.9
+    bc = rng.integers(1, 50, n)
+    bc[rng.random(n) < 0.2] = 0x3FFFFF
+    pk = (bc << 10) | (rng.integers(0, 16, n) << 6) | (rng.integers(0, 16, n) << 2) | (valid.astype(np.int64) << 1)
+    w0 = np.r_[(ids // 1000).astype(np.int64) | 0x80000000, np.full(sentinel_rows, SENT)]
+    w1 = np.r_[(ids % 1000).astype(np.int64), np.full(sentinel_rows, SENT)]
+    w2 = np.r_[(ids * 7 % 911).astype(np.int64), np.full(sentinel_rows, SENT)]
+    order = np.lexsort((pk, np.r_[ids, np.full(sentinel_rows, len(lengths))]))
+    return [torch.from_numpy(np.ascontiguousarray(x[order])).to(dev) for x in (w0, w1, w2, pk)]
+
+
+def small_runs(rng, count):
+    return list(rng.integers(1, 60, count))
+
+
+@pytest.mark.parametrize("case", [
+    # (run lengths, sentinel rows) from the kernel's tile t
+    pytest.param(lambda t, rng: ([t - 1, t, t + 1] * 3, 0), id="tile_edges"),
+    pytest.param(lambda t, rng: ([5, t - 1, 7, t, 1, t + 1, 3], 5), id="tile_edges_offset"),
+    pytest.param(lambda t, rng: ([5 * t + 17], 0), id="one_run"),
+    pytest.param(lambda t, rng: ([5 * t + 17], 2 * t + 5), id="one_run_sentinel_tail"),
+    pytest.param(lambda t, rng: ([0], 3 * t + 1), id="sentinel_only"),
+    pytest.param(lambda t, rng: (
+        [1_000_000] + small_runs(rng, 500) + [999_999, 1_000_001] + small_runs(rng, 300),
+        2 * t + 5), id="runs_of_1M"),
+])
+def test_run_reduce_runs_match_plain(dev, case):
+    """K3's segmented reduction: runs of one tile and one row either side,
+    a run spanning the whole input, runs of a million rows (a carry over
+    ~490 tiles), sentinel-only tails; exactly its twin's outputs."""
+    rng = np.random.default_rng(33)
+    lengths, sentinel_rows = case(k3_tile(), rng)
+    cols = stream_with_runs(rng, [x for x in lengths if x], sentinel_rows, dev)
+    for mf, mb in ((3, 2), (1, 0)):
+        for a, b in zip(k3.run_reduce_cuda(*cols, mf, mb), k3.run_reduce_plain(*cols, mf, mb)):
+            assert torch.equal(a, b)
 
 
 def test_sort_wrapper_rejects_bad_input(dev):

@@ -71,6 +71,8 @@ def test_k1_plain_matches_pallas(n):
         (70_000, 2_000, (PALLAS_BLOCK - 500, PALLAS_BLOCK + 9_000), False, 3, 2),
         (70_000, 5_000, None, True, 3, 2),
         (40_000, 800, (1_000, 36_000), False, 1, 0),
+        # one run over six of the card kernel's 2048-row reduction tiles
+        (50_000, 1_500, (6_044, 18_482), False, 3, 2),
     ],
 )
 def test_k3_plain_matches_pallas(n, n_kmers, long_run, top_bit, min_freq, min_bc):

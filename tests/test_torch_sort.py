@@ -11,6 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from supernova_tpu.ops.pallas.sort import sort_bitonic_pallas
 from supernova_tpu_torch.core import kmer_codec as kc
@@ -107,9 +109,9 @@ def test_dispatch_on_cpu_takes_the_twin_and_counts_nothing():
 
 
 def test_live_digits_are_the_digits_that_vary():
-    """The card's pass skipping: from a key's AND and OR (as the kernel
-    returns them, signed int32), exactly the digits taking two or more
-    values are live."""
+    """The AND/OR rule for skipping passes: from a key's AND and OR (as
+    signed int32), exactly the digits taking two or more values are live.
+    The card's histogram rule is held to it below."""
     rng = np.random.default_rng(13)
     for _ in range(200):
         n = int(rng.integers(1, 40))
@@ -119,6 +121,40 @@ def test_live_digits_are_the_digits_that_vary():
         as_i32 = lambda x: int(np.uint32(x).view(np.int32))
         got = k4.live_digits(as_i32(np.bitwise_and.reduce(keys)), as_i32(np.bitwise_or.reduce(keys)))
         assert got == want
+
+
+def as_i32(x):
+    return int(np.uint32(x).view(np.int32))
+
+
+@settings(max_examples=80, deadline=None)
+@given(n=st.integers(1, 400), kind=st.sampled_from(["random", "ties", "constant_digits"]),
+       seed=st.integers(0, 2**32 - 1))
+def test_live_digits_from_hist_agree_with_and_or(n, kind, seed):
+    """The card plans its passes from the digit histograms (one bin holding
+    all n rows = a constant digit); on random, tied and constant-digit keys
+    that picks the same digits as the AND/OR rule.  Histograms by
+    torch.bincount on the CPU."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        keys = rng.integers(0, 2**32, n, dtype=np.uint64)
+    elif kind == "ties":
+        keys = rng.choice(rng.integers(0, 2**32, 3, dtype=np.uint64), n)
+    else:
+        keys = (rng.integers(0, 256, n, dtype=np.uint64) << np.uint64(8)) | np.uint64(0x80000000)
+    t = torch.from_numpy(keys.astype(np.int64))
+    hist = torch.stack([torch.bincount((t >> (8 * d)) & 0xFF, minlength=k4.RADIX)
+                        for d in range(k4.DIGITS)])
+    k32 = keys.astype(np.uint32)
+    want = k4.live_digits(as_i32(np.bitwise_and.reduce(k32)), as_i32(np.bitwise_or.reduce(k32)))
+    assert k4.live_digits_from_hist(hist, n) == want
+
+
+def test_plan_passes_is_lsd_order():
+    """Keys from the last to the first, each key's live digits from the
+    least significant; keys with no live digit get no pass."""
+    assert k4.plan_passes([[0, 3], [], [1, 2]]) == [(2, 1), (2, 2), (0, 0), (0, 3)]
+    assert k4.plan_passes([[], []]) == []
 
 
 def test_sort_by_words_equals_stable_lax_sort():

@@ -10,13 +10,16 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
   3. each kernel against its plain PyTorch twin on the card, at the shapes
      one count block gives it: K1 on the ~90M-code read block, K4 on the
      ~62M-row x 4-key occurrence sort, K3 and K2 on the sorted occurrence
-     stream (K2 with 5 columns), and K3 again on that stream with ~10% of
-     its rows folded into runs of 100k-1M rows.  All outputs are integers
-     and must be EXACTLY equal; median times by CUDA events after a
-     warm-up, beside the bound (bytes the function must move over 3.35
-     TB/s) and, for K4 and K2, one PyTorch call computing the same function
-     (a yardstick the port never calls); K4's and K3's launches are listed
-     one by one with their device times (stats/kernel_phases.py);
+     stream (K2 with 5 columns, without and with the count's tail fill,
+     the latter beside the K2 + zero + sentinel passes it replaced; then
+     again on a raw block's kept rows, K3 with (1, 0)), and K3 again on
+     that stream with ~10% of its rows folded into runs of 100k-1M rows.
+     All outputs are integers and must be EXACTLY equal; median times by
+     CUDA events after a warm-up, beside the bound (bytes the function
+     must move over 3.35 TB/s) and, for K4 and K2, one PyTorch call
+     computing the same function (a yardstick the port never calls); K4's,
+     K3's and K2's launches are listed one by one with their device times
+     (stats/kernel_phases.py);
   4. the slice on an 8 kb genome on CUDA and on the CPU plain path: the
      KmerTable, every BaseGraph array and ReadPaths[:n_reads] identical;
   5. the slice at one block — a 2 Mb diploid genome (het 0.001), 600
@@ -55,6 +58,12 @@ KERNELS = {
     "compact": ("supernova_tpu_torch/csrc/compact.cu",
                 "supernova_tpu/ops/pallas/compact.py:115"),
 }
+# measurements a kernel's entry of the JSON line carries beyond the common
+# keys: K3 on long runs; K2's sector floor, its call with the count's fill
+# beside the sequence that call replaced, and the same at a raw block's shape
+EXTRA_KEYS = ("adversarial_ms", "sector_floor_ms", "fill_ms", "three_step_ms",
+              "fill_bound_ms", "fill_sector_floor_ms", "raw_shape", "raw_ms",
+              "raw_fill_ms", "raw_three_step_ms")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published device-memory rate
 
 
@@ -224,26 +233,85 @@ def phase_kernels(torch, rs, dev):
     del adv
     keep, count, stats = got
 
-    cols = (ws.a, ws.b, ws.c, count, stats)
+    # K2 on the count's kept run ends (K3 with the filter), then on a raw
+    # block's (K3 with (1, 0): every real run end), as the count calls it
+    res["compact"] = check_compact(torch, keep, (ws.a, ws.b, ws.c, count, stats), "filtered")
+    print_launches(torch, "compact",
+                   lambda: k2.compact_cuda(keep, ws.a, ws.b, ws.c, count, stats, fills=K2_FILLS))
+    del keep, count, stats, got
+    keep, count, stats = k3.run_reduce_cuda(ws.a, ws.b, ws.c, pk, 1, 0)
+    raw = check_compact(torch, keep, (ws.a, ws.b, ws.c, count, stats), "raw block")
+    res["compact"].update(raw_shape=raw["shape"], raw_ms=raw["ms"], raw_fill_ms=raw["fill_ms"],
+                          raw_three_step_ms=raw["three_step_ms"])
+    return res
+
+
+# the count's tail fill: the sentinel in the three words, 0 in count and stats
+K2_FILLS = (0xFFFFFFFF,) * 3 + (0, 0)
+
+
+def check_compact(torch, keep, cols, label):
+    """K2 against its twin on the count's five columns, without fill (the
+    kept rows; today's row, with its bound and `c[keep]` yardstick) and
+    with the count's fill (every row), beside the sequence the count ran
+    before K2 wrote the tail: K2, a zero pass over every column and a
+    sentinel pass over the words.  Bounds: bytes the function must move,
+    and the sector floor (a kept row's read of a column costs 32 B)."""
+    from supernova_tpu_torch.ops.kernels import compact as k2
+
+    rows = keep.shape[0]
     nv_k, out_k = k2.compact_cuda(keep, *cols)
     nv_p, out_p = k2.compact_plain(keep, *cols)
     torch.cuda.synchronize()
     nv = int(nv_p)
-    check(int(nv_k) == nv, f"K2 n_valid {int(nv_k)} != plain {nv}")
+    check(int(nv_k) == nv, f"K2 n_valid {int(nv_k)} != plain {nv} ({label})")
     err = max_abs_err(torch, [(x[:nv], y[:nv]) for x, y in zip(out_k, out_p)])
     check(all(torch.equal(x[:nv], y[:nv]) for x, y in zip(out_k, out_p)),
-          "K2 differs from plain")
-    res["compact"] = dict(
-        shape=f"{rows} rows x {len(cols)} columns, {nv} kept", max_abs_err=err,
+          f"K2 differs from plain ({label})")
+    del out_k, out_p
+
+    def three_step():
+        n_valid, outs = k2.compact_cuda(keep, *cols)
+        live = torch.arange(rows, device=keep.device) < n_valid
+        outs = [torch.where(live, c, 0) for c in outs]
+        m = torch.arange(rows, device=keep.device) < n_valid
+        return [torch.where(m, w, 0xFFFFFFFF) for w in outs[:3]] + outs[3:]
+
+    fill_k = k2.compact_cuda(keep, *cols, fills=K2_FILLS)[1]
+    fill_p = k2.compact_plain(keep, *cols, fills=K2_FILLS)[1]
+    old = three_step()
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(torch, zip(fill_k, fill_p)))
+    check(all(torch.equal(x, y) for x, y in zip(fill_k, fill_p)),
+          f"K2 with fill differs from plain ({label})")
+    check(all(torch.equal(x, y) for x, y in zip(fill_k, old)),
+          f"K2 with fill differs from K2 + zero + sentinel passes ({label})")
+    del fill_k, fill_p, old
+    row_bytes = sum(c.element_size() for c in cols)
+    sectors = nv * len(cols) * 32
+    r = dict(
+        shape=f"{rows} rows x {len(cols)} columns, {nv} kept ({nv / rows:.4f})", max_abs_err=err,
         ms=median_ms(torch, lambda: k2.compact_cuda(keep, *cols)),
         plain_ms=median_ms(torch, lambda: k2.compact_plain(keep, *cols)),
         # read the mask, read and write the kept rows of every column
-        bound_ms=bound_ms(rows + 2 * nv * sum(c.element_size() for c in cols)),
+        bound_ms=bound_ms(rows + 2 * nv * row_bytes),
+        sector_floor_ms=bound_ms(rows + sectors + nv * row_bytes),
         library_ms=median_ms(torch, lambda: [c[keep] for c in cols]),
         library_shape=f"c[keep] for each of the {len(cols)} columns",
+        fill_ms=median_ms(torch, lambda: k2.compact_cuda(keep, *cols, fills=K2_FILLS)),
+        fill_plain_ms=median_ms(torch, lambda: k2.compact_plain(keep, *cols, fills=K2_FILLS)),
+        three_step_ms=median_ms(torch, three_step),
+        # ... and write every row of every column
+        fill_bound_ms=bound_ms(rows + nv * row_bytes + rows * row_bytes),
+        fill_sector_floor_ms=bound_ms(rows + sectors + rows * row_bytes),
     )
-    print_kernel("compact", res["compact"])
-    return res
+    print_kernel(f"compact ({label})", r)
+    print(f"[kernels] compact ({label}) with fill: exact; kernel {r['fill_ms']:.3f} ms, "
+          f"plain {r['fill_plain_ms']:.3f} ms, K2 + zero + sentinel passes "
+          f"{r['three_step_ms']:.3f} ms, bound {r['fill_bound_ms']:.3f} ms, sector floor "
+          f"{r['fill_sector_floor_ms']:.3f} ms; without fill: sector floor "
+          f"{r['sector_floor_ms']:.3f} ms")
+    return r
 
 
 def print_kernel(name, r):
@@ -442,8 +510,7 @@ def main() -> int:
              launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
              library_ms=r.get("library_ms"), library_shape=r.get("library_shape"),
-             shape=r["shape"], **({"adversarial_ms": r["adversarial_ms"]}
-                                  if "adversarial_ms" in r else {}))
+             shape=r["shape"], **{k: r[k] for k in EXTRA_KEYS if k in r})
         for name, r in kres.items()
     ]}))
     print(f"[time] chip_smoke {time.perf_counter() - t_start:.1f} s")

@@ -130,15 +130,14 @@ def unpack_occurrence_attrs(pk):
 def _reduce_packed(canon: W3, packed, min_freq: int, min_bc: int) -> KmerTable:
     """Sort (kmer, packed attrs) rows and reduce each run into a filtered
     KmerTable padded to the row count."""
-    nb = canon.a.shape[0]
-    dev = canon.a.device
     ws, (pk,), _ = kc.sort_by_words(canon, extra_keys=(packed,))
-    if dev.type == "cuda":
+    if canon.a.device.type == "cuda":
         # fused: all per-run statistics + the keep decision in one pass (K3),
-        # then a stable compaction of the kept run ends (K2)
+        # then a stable compaction of the kept run ends (K2), which also
+        # writes the sentinel/zero tail
         keep, count, stats = run_reduce(ws.a, ws.b, ws.c, pk, min_freq, min_bc)
         n_valid, (wa, wb, wc, c2, st2) = seg.compact_sorted_words(
-            keep, ws.a, ws.b, ws.c, count, stats
+            keep, ws.a, ws.b, ws.c, count, stats, word_fill=kc.SENTINEL
         )
         nbc2, l2, r2 = (st2 >> 9) & 4095, (st2 >> 5) & 15, (st2 >> 1) & 15
     else:
@@ -146,10 +145,10 @@ def _reduce_packed(canon: W3, packed, min_freq: int, min_bc: int) -> KmerTable:
         keep = ends & real & (count >= min_freq) & (ign | (nbc >= min_bc))
         i32 = torch.int32
         n_valid, (wa, wb, wc, c2, nbc2, l2, r2) = seg.compact_sorted_words(
-            keep, ws.a, ws.b, ws.c, count.to(i32), nbc.to(i32), lm.to(i32), rm.to(i32)
+            keep, ws.a, ws.b, ws.c, count.to(i32), nbc.to(i32), lm.to(i32), rm.to(i32),
+            word_fill=kc.SENTINEL,
         )
-    m = torch.arange(nb, device=dev) < n_valid
-    return KmerTable(W3(wa, wb, wc).where(m, kc.SENTINEL), c2, nbc2, l2, r2, n_valid)
+    return KmerTable(W3(wa, wb, wc), c2, nbc2, l2, r2, n_valid)
 
 
 def reduce_occurrences(canon: W3, bc, lm, rm, valid, min_freq: int = MIN_FREQ,
@@ -339,14 +338,12 @@ def _reduce_occurrences_raw(canon: W3, packed) -> RawBlockTable:
     """Sort + per-run reduce WITHOUT the (min_freq, min_bc) filter: K3 with
     min_freq=1, min_bc=0 keeps every real run end (its plain twin on the
     CPU, which clamps nbc at 4095 as the reference's raw branch does)."""
-    nb = canon.a.shape[0]
     ws, (pk,), _ = kc.sort_by_words(canon, extra_keys=(packed,))
     keep, count, stats = run_reduce(ws.a, ws.b, ws.c, pk, 1, 0)
     n_valid, (wa, wb, wc, c2, st2) = seg.compact_sorted_words(
-        keep, ws.a, ws.b, ws.c, count, stats
+        keep, ws.a, ws.b, ws.c, count, stats, word_fill=kc.SENTINEL
     )
-    m = torch.arange(nb, device=canon.a.device) < n_valid
-    return RawBlockTable(W3(wa, wb, wc).where(m, kc.SENTINEL), c2, st2, n_valid)
+    return RawBlockTable(W3(wa, wb, wc), c2, st2, n_valid)
 
 
 def count_block_raw_packed(codes_packed, glen_r, bc_r, n_reads: int,
@@ -436,10 +433,10 @@ def merge_raw_blocks(wa, wb, wc, count, stats, min_freq: int, min_bc: int) -> Km
     keep = ~kc.is_sentinel(words) & (total >= min_freq) & (ign | (nbc >= min_bc))
     i32 = torch.int32
     n_valid, (a2, b2, c2, t2, n2, l2, r2) = seg.compact_sorted_words(
-        keep, words.a, words.b, words.c, total.to(i32), nbc.to(i32), lm.to(i32), rm.to(i32)
+        keep, words.a, words.b, words.c, total.to(i32), nbc.to(i32), lm.to(i32), rm.to(i32),
+        word_fill=kc.SENTINEL,
     )
-    m = torch.arange(nruns, device=dev) < n_valid
-    return KmerTable(W3(a2, b2, c2).where(m, kc.SENTINEL), t2, n2, l2, r2, n_valid)
+    return KmerTable(W3(a2, b2, c2), t2, n2, l2, r2, n_valid)
 
 
 def merge_row_limit(device: torch.device) -> int:

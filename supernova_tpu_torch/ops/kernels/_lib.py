@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-The sources are compiled at first use with nvcc into ONE shared library
-with a plain C interface, loaded with ctypes:
+The sources are compiled at first use with nvcc, one process a source,
+all started together, and linked into ONE shared library with a plain C
+interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/<hash>/libsupernova_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu     (each source)
+    nvcc ... -shared -o _build/<hash>/libsupernova_kernels.so *.o
 
 The build directory `supernova_tpu_torch/_build/` is keyed on a hash of
 the sources and flags, so an edited kernel rebuilds and an unchanged one
@@ -30,7 +32,7 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 LIB_NAME = "libsupernova_kernels.so"
 
@@ -42,9 +44,10 @@ LL = ctypes.c_longlong
 SIGNATURES = {
     # codes, n, m, w0, w1, w2, stream
     "sn_kmer_extract": [P, LL, LL, P, P, P, P],
-    # valid, n, ncols, in_ptrs[8], out_ptrs[8], esizes[8], counts,
-    # offsets, n_valid, stream
-    "sn_compact": [P, LL, INT, P, P, P, P, P, P, P],
+    # valid, n, ncols, in_ptrs[8], out_ptrs[8], esizes[8], fills[8] or
+    # null, scratch, scratch_words, n_valid, stream
+    "sn_compact": [P, LL, INT, P, P, P, P, P, LL, P, P],
+    "sn_compact_tile_rows": [],
     # w0, w1, w2, pk, n, min_freq, min_bc, tails, tail_slots, keep, count,
     # stats, stream
     "sn_run_reduce": [P, P, P, P, LL, INT, INT, P, LL, P, P, P, P],
@@ -89,14 +92,28 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cus = [str(p) for p in sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        )
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+
+    def start(cmd):
+        return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True)
+
+    def wait(jobs):
+        """Wait for every job, then raise on the first that failed."""
+        done = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in jobs]
+        for cmd, out, rc in done:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+
+    cus = [p for p in sources() if p.suffix == ".cu"]
+    objs = [str(out_dir / f".{p.stem}.{tag}.o") for p in cus]
+    # one process a source, all running at once
+    wait([start([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(p)]) for obj, p in zip(objs, cus)])
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    wait([start([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs])])
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
     return lib
 

@@ -51,15 +51,15 @@ def stable_compact(valid, *arrays):
     return kcompact.compact_plain(valid, *arrays)
 
 
-def compact_sorted_words(valid, wa, wb, wc, *payloads):
+def compact_sorted_words(valid, wa, wb, wc, *payloads, word_fill=0):
     """Stable compaction of the rows where `valid` holds, for rows sorted by
-    (wa, wb, wc); rows past n_valid are zeroed.
+    (wa, wb, wc); rows past n_valid hold `word_fill` in the three words and
+    0 in the payloads.
 
-    A CUDA tensor goes through kernel K2 (csrc/compact.cu); a CPU tensor
-    through the plain boolean-mask compaction.  The reference's sort-based
-    fallback needs kept rows to have distinct words; a stable compaction
-    gives the same rows in the same order without that condition."""
-    n = valid.shape[0]
-    n_valid, res = kcompact.compact(valid, wa, wb, wc, *payloads)
-    live = torch.arange(n, device=valid.device) < n_valid
-    return n_valid, tuple(torch.where(live, c, 0) for c in res)
+    A CUDA tensor goes through kernel K2 (csrc/compact.cu), which writes the
+    tail itself; a CPU tensor through the plain boolean-mask compaction.
+    The reference's sort-based fallback needs kept rows to have distinct
+    words; a stable compaction gives the same rows in the same order
+    without that condition."""
+    fills = (word_fill,) * 3 + (0,) * len(payloads)
+    return kcompact.compact(valid, wa, wb, wc, *payloads, fills=fills)

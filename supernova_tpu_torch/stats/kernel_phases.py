@@ -4,12 +4,15 @@
 
 Builds the kernels, simulates the one-block dataset (pipeline/datasets.py
 FULL), makes the occurrence sort's input and the sorted occurrence stream
-as the count does, and prints, for K4 (`lex_argsort_cuda`, 4 keys) and K3
-(`run_reduce_cuda`), every device launch of one call in launch order with
-its median device time over a few calls, then the sums by kernel name.
+as the count does, and prints, for K4 (`lex_argsort_cuda`, 4 keys), K3
+(`run_reduce_cuda`) and K2 (`compact_cuda` of the kept run ends' five
+columns, without and with the count's tail fill), every device launch of
+one call in launch order with its median device time over a few calls,
+then the sums by kernel name.
 Times are the profiler's device intervals (CUPTI), so each launch is timed
 alone, without the host's launch gaps.  It uses only wrapper entry points,
-so it times whatever design the checkout holds.
+so it times whatever design the checkout holds (a case whose call the
+checkout's wrapper does not take is reported and skipped).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..core import kmer_codec as kc
 from ..kmer import count as kcount
 from ..ops.kernels import _lib
+from ..ops.kernels import compact as k2
 from ..ops.kernels import run_reduce as k3
 from ..ops.kernels import sort as k4
 from ..pipeline import datasets
@@ -116,8 +120,19 @@ def main(out_path: str | None = None) -> int:
     mf, mb = kcount.MIN_FREQ, kcount.MIN_BC
     cases.append(("K3 run_reduce_cuda", f"{rows} rows",
                   lambda: k3.run_reduce_cuda(ws.a, ws.b, ws.c, spk, mf, mb)))
+    keep, count, stats = k3.run_reduce_cuda(ws.a, ws.b, ws.c, spk, mf, mb)
+    fills = (kc.SENTINEL,) * 3 + (0, 0)
+    shape = f"{rows} rows x 5 columns, {int(keep.sum())} kept"
+    cases.append(("K2 compact_cuda", shape,
+                  lambda: k2.compact_cuda(keep, ws.a, ws.b, ws.c, count, stats)))
+    cases.append(("K2 compact_cuda with fill", shape,
+                  lambda: k2.compact_cuda(keep, ws.a, ws.b, ws.c, count, stats, fills=fills)))
     for label, shape, fn in cases:
-        times = launch_times(fn)
+        try:
+            times = launch_times(fn)
+        except TypeError as e:
+            emit(f"=== {label} at {shape}: not taken by this checkout ({e})")
+            continue
         emit(f"=== {label} at {shape}: {len(times)} launches, "
              f"{sum(ms for _, ms in times):.3f} ms of device time")
         for i, (name, ms) in enumerate(times):

@@ -9,8 +9,9 @@ steps alone, then runs each stage of Pipeline(device="cuda") on the
 dataset inside its own torch.profiler.profile(CPU, CUDA).  Per stage it writes the wall
 time, the device busy time (the union of the device events' intervals),
 idle share = 1 - busy / wall, peak device memory, the device time and
-launches of each of the port's kernels K1-K4, and the profile's top
-operators by self device time.  Everything printed is also
+launches of each of the port's kernels K1-K4, the device time and calls
+of the elementwise operators the count's tail passes ran (WATCHED_OPS),
+and the profile's top operators by self device time.  Everything printed is also
 written to OUT.txt.
 """
 from __future__ import annotations
@@ -32,10 +33,13 @@ from .kernel_phases import short_name
 # the device functions of each of the port's kernels (csrc/*.cu)
 PORT_KERNELS = {
     "K1 kmer_extract": ("kmer_extract_kernel",),
-    "K2 compact": ("count_kernel", "scan_kernel", "scatter_kernel"),
+    "K2 compact": ("compact_kernel",),
     "K3 run_reduce": ("tail_kernel", "run_reduce_kernel"),
     "K4 sort": ("hist_kernel", "onesweep_kernel"),
 }
+# the operators of the tail passes that followed each K2 call on the count
+# path until K2 wrote the tail itself (arange < n_valid, then torch.where)
+WATCHED_OPS = ("aten::arange", "aten::lt", "aten::where")
 
 
 def device_busy_s(prof) -> float:
@@ -64,6 +68,14 @@ def port_kernels(prof) -> str:
                 sums[k][0] += (e.time_range.end - e.time_range.start) / 1e3
                 sums[k][1] += 1
     return ", ".join(f"{k} {ms:.3f} ms ({n} device launches)" for k, (ms, n) in sums.items())
+
+
+def watched_ops(prof) -> str:
+    """Self device time and calls of each operator in WATCHED_OPS."""
+    avg = {e.key: e for e in prof.key_averages()}
+    return ", ".join(
+        f"{k} {avg[k].self_device_time_total / 1e3:.3f} ms ({avg[k].count} calls)" if k in avg
+        else f"{k} none" for k in WATCHED_OPS)
 
 
 def main(out_path: str, dataset: str = "FULL") -> int:
@@ -107,6 +119,7 @@ def main(out_path: str, dataset: str = "FULL") -> int:
                  f"idle share {1 - busy / wall:.3f}, "
                  f"peak {pl.stage_records[name]['peak_gb']:.3f} GiB")
             emit(f"port kernels: {port_kernels(prof)}")
+            emit(f"tail-pass operators: {watched_ops(prof)}")
             emit(prof.key_averages().table(sort_by="self_device_time_total", row_limit=14,
                           max_name_column_width=60))
             return res

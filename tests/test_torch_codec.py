@@ -214,6 +214,33 @@ def test_compact_sorted_words_matches_reference():
         assert np.array_equal(np.asarray(r).astype(np.int64), p.numpy().astype(np.int64))
 
 
+@pytest.mark.parametrize("frac", [0.0, 0.03, 0.5, 1.0])
+def test_compact_sorted_words_sentinel_fill_matches_reference(frac):
+    """word_fill=SENTINEL: the reference's compact_sorted_words, then the
+    count's sentinel on the words past n_valid
+    (supernova_tpu/kmer/count.py:209-213); payload tails stay zero."""
+    rng = np.random.default_rng(int(frac * 100) + 9)
+    n = 3000
+    arr = np.stack(rand_words(rng, n, pool=700), axis=-1)
+    arr = arr[np.lexsort(arr.T[::-1])]
+    ends = np.ones(n, bool)
+    ends[:-1] = (arr[1:] != arr[:-1]).any(axis=1)
+    keep = ends & (rng.random(n) < frac)
+    pays = [rng.integers(0, 2**31, n).astype(np.int32) for _ in range(2)]
+    cols = [arr[:, j].copy() for j in range(3)]
+    rn, rres = rseg.compact_sorted_words(jnp.asarray(keep), *map(jnp.asarray, cols),
+                                         *map(jnp.asarray, pays))
+    m = jnp.arange(n) < rn
+    rw3 = rkc.W3(*rres[:3]).where(m, rkc.SENTINEL)
+    pn, pres = seg.compact_sorted_words(
+        torch.from_numpy(keep), *(torch.from_numpy(c.astype(np.int64)) for c in cols),
+        *map(torch.from_numpy, pays), word_fill=kc.SENTINEL,
+    )
+    assert int(rn) == int(pn) == keep.sum()
+    for r, p in zip((*rw3, *rres[3:]), pres):
+        assert np.array_equal(np.asarray(r).astype(np.int64), p.numpy().astype(np.int64))
+
+
 def test_resolve_device():
     assert resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False

@@ -178,6 +178,71 @@ def test_run_reduce_runs_match_plain(dev, case):
             assert torch.equal(a, b)
 
 
+def k2_tile():
+    return _lib.library().sn_compact_tile_rows()
+
+
+def compact_input(n, frac, ncols, dev, seed, offset=0):
+    """A keep mask of density `frac` (a view `offset` bytes into its
+    buffer) and `ncols` columns, int64 (full 64-bit values) and int32 in
+    turn, drawn on the card; and one fill value a column."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keep = (torch.rand(n + offset, device=dev, generator=g) < frac)[offset:]
+    cols, fills = [], []
+    for j in range(ncols):
+        dt = torch.int64 if j % 2 == 0 else torch.int32
+        info = torch.iinfo(dt)
+        cols.append(torch.randint(info.min, info.max, (n,), dtype=dt, device=dev, generator=g))
+        fills.append(SENT if dt == torch.int64 else -1 - j)
+    return keep, cols, fills
+
+
+def assert_compact_matches_plain(keep, cols, fills):
+    """K2 equals its twin: n_valid and the kept rows always, the tail too
+    when fill values are given."""
+    nv_a, out_a = k2.compact(keep, *cols, fills=fills)
+    nv_b, out_b = k2.compact_plain(keep, *cols, fills=fills)
+    k = int(nv_b)
+    assert int(nv_a) == k
+    for a, b in zip(out_a, out_b):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b) if fills is not None else torch.equal(a[:k], b[:k])
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.03, 0.25, 1.0])
+@pytest.mark.parametrize("n", [0, 1, "tile-1", "tile", "tile+1", (1 << 24) + 3])
+def test_compact_matches_plain(dev, n, frac):
+    """K2 at the edges of its tile and over thousands of tiles, 1 and 8
+    columns of mixed int32/int64, with and without fill values."""
+    if isinstance(n, str):
+        n = k2_tile() + {"tile-1": -1, "tile": 0, "tile+1": 1}[n]
+    for ncols in (1, 8):
+        keep, cols, fills = compact_input(n, frac, ncols, dev, seed=n + ncols)
+        for f in (None, fills):
+            assert_compact_matches_plain(keep, cols, f)
+
+
+@pytest.mark.parametrize("n", ["3tiles+5", (1 << 20) + 7])
+def test_compact_unaligned_mask(dev, n):
+    """A mask view 1 byte into its buffer (no 16-byte vector loads)."""
+    if isinstance(n, str):
+        n = 3 * k2_tile() + 5
+    keep, cols, fills = compact_input(n, 0.3, 5, dev, seed=n, offset=1)
+    assert keep.data_ptr() % 16 != 0
+    for f in (None, fills):
+        assert_compact_matches_plain(keep, cols, f)
+
+
+def test_compacts_back_to_back(dev):
+    """Compactions of different n one after another on one stream: a
+    status word or tile counter left from the previous call would misplace
+    rows."""
+    t = k2_tile()
+    for i, n in enumerate(((1 << 22) + 11, 3 * t + 5, (1 << 21) - 1, t * 40, 7)):
+        keep, cols, fills = compact_input(n, (0.03, 0.5)[i % 2], 3, dev, seed=i)
+        assert_compact_matches_plain(keep, cols, fills)
+
+
 def test_sort_wrapper_rejects_bad_input(dev):
     k = torch.zeros(10, dtype=torch.int64, device=dev)
     with pytest.raises(TypeError):
@@ -202,6 +267,10 @@ def test_wrappers_reject_bad_input(dev):
         k2.compact(torch.ones(10, dtype=torch.bool, device=dev), w[:5])
     with pytest.raises(ValueError):
         k2.compact(torch.ones(10, dtype=torch.bool, device=dev), *([w] * 9))
+    with pytest.raises(ValueError):
+        k2.compact(torch.ones(10, dtype=torch.bool, device=dev), w, fills=(SENT,))
+    with pytest.raises(ValueError):
+        k2.compact(torch.ones(10, dtype=torch.bool, device=dev), w, w, fills=(0,))
 
 
 def test_build_is_cached(dev):

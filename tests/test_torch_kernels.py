@@ -136,6 +136,43 @@ def test_k2_plain_matches_pallas_with_duplicate_words(n, frac):
         assert not p.numpy()[k:].any()
 
 
+@pytest.mark.parametrize("frac", [0.0, 0.03, 0.5, 1.0])
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_k2_plain_fills_match_pallas(frac, dtype):
+    """With fill values the twin is the Pallas compaction on [:n_valid] and
+    each column's fill on [n_valid:] (two Pallas blocks, so its stitch
+    runs)."""
+    n = 40_000
+    rng = np.random.default_rng(int(frac * 100) + len(dtype))
+    keep = rng.random(n) < frac
+    if dtype == "int64":  # kmer words, the sentinel and another fill
+        raw = [np.sort(rng.integers(0, 2**32, n, dtype=np.uint64)).astype(np.uint32) | np.uint32(0x80000000),
+               rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)]
+        cols, fills = [t64(c) for c in raw], (SENT, 0x12345)
+    else:  # payloads, zero and a negative fill
+        raw = [rng.integers(-5, 2**30, n).astype(np.int32) for _ in range(2)]
+        cols, fills = [torch.from_numpy(c) for c in raw], (0, -7)
+    rn, rres = compact_stream_pallas(jnp.asarray(keep), *map(jnp.asarray, raw), interpret=True)
+    pn, pres = k2.compact(torch.from_numpy(keep), *cols, fills=fills)
+    k = int(rn)
+    assert k == int(pn) == keep.sum()
+    for r, p, c, f in zip(rres, pres, cols, fills):
+        assert p.dtype == c.dtype and p.shape == c.shape
+        assert np.array_equal(np.asarray(r)[:k].astype(np.int64), p.numpy()[:k].astype(np.int64))
+        assert (p.numpy()[k:] == f).all()
+
+
+def test_k2_fills_must_fit_each_column():
+    keep = torch.ones(4, dtype=torch.bool)
+    w, p = torch.zeros(4, dtype=torch.int64), torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        k2.compact(keep, w, p, fills=(SENT,))
+    with pytest.raises(ValueError):
+        k2.compact(keep, w, p, fills=(0, SENT))
+    _, (w2, p2) = k2.compact(keep, w, p, fills=(SENT, -1))
+    assert torch.equal(w2, w) and torch.equal(p2, p)
+
+
 def test_cpu_wrappers_never_launch():
     """On CPU tensors every wrapper takes its plain twin; the launch
     counters stay 0."""

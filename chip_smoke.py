@@ -30,11 +30,28 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      counters reset just before the run);
   6. the same at genome scale (pipeline/datasets.py GENOME: 10 Mb, 3,000
      barcodes, ~3M reads, ~450M bases, ~45x), which takes the blocked
-     count (>= 2 blocks, one device merge) and the blocked pather;
-  7. K4 against its twin at the genome's merge shape (its raw row count,
+     count (>= 2 blocks spilled, one device merge) and the blocked pather;
+  7. the genome's count three more ways (count stage only): (a) its merge
+     cut into >= 4 kmer-range partitions on the card, blocks spilled to a
+     directory; (b) the same call again, every block resumed from the
+     spills and none recounted; (c) count_readset beside a ballast tensor
+     that leaves the card less free memory than a 96M-position block's
+     count peak but more than a 48M one's (both measured first), so it
+     runs out of memory and halves its block size.  Each table equals the
+     genome phase's bit for bit; wall, device peak, partitions, launches;
+  8. the partitioned merge at the size of the reference's 30 Mb run
+     (artifacts/val30mb_r5/run.log): 15 sorted synthetic raw blocks built
+     on the card and spilled, 473,961,288 raw rows, 31,200,000 "genome"
+     kmers in 13 of the 15 blocks each (kept) and single-block count-1
+     "error" kmers (dropped); merged under the card's own budget (>= 2
+     partitions) and again cut into >= 4, then the adjacency recompute:
+     equal tables, n_valid and the kept count sum the construction
+     implies, strictly ascending; walls, device peaks and their bytes a
+     row, host peak RSS, K4/K2 launches a partition;
+  9. K4 against its twin at the genome's merge shape (its raw row count,
      3 keys) and at its graph's chain-order shape (2 keys, two nodes a
      kmer), and the merge's peak device bytes per raw row;
-  8. no module of the JAX package (or jax) was imported.
+ 10. no module of the JAX package (or jax) was imported.
 Then one JSON line with the kernels (launches from the genome phase), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}.  Exits
 nonzero without a GPU.
@@ -370,7 +387,8 @@ def phase_slice(torch, rs, tag, min_blocks=None):
     crec = pl.stage_records["count"]
     if min_blocks is not None:
         print(f"[{tag}] count: {crec.get('blocks')} blocks of {crec.get('block_rows')} raw "
-              f"rows; merged {crec.get('raw_rows')} raw rows in one device merge")
+              f"rows spilled; merged {crec.get('raw_rows')} raw rows in "
+              f"{crec.get('partitions')} device merge(s); OOM retries {crec.get('oom_retries')}")
         check(crec.get("blocks", 1) >= min_blocks,
               f"{crec.get('blocks', 1)} count blocks < {min_blocks}")
     kd, ne, placed = (pl.stats.get(k) for k in ("kmers_distinct", "n_edges", "placed_perc"))
@@ -386,7 +404,221 @@ def phase_slice(torch, rs, tag, min_blocks=None):
     print(f"[{tag}] BaseGraph.validate() passed; table strictly ascending over {n} rows")
     for name, c in launches.items():
         check(c > 0, f"kernel {name} was not launched by the main path")
-    return launches, crec, n
+    from supernova_tpu_torch import convert
+
+    return launches, crec, convert.table_to_numpy(table)
+
+
+def same_table(want, got, label):
+    """Two host tables (convert.table_to_numpy) equal bit for bit."""
+    import numpy as np
+
+    check(want.n_valid == got.n_valid, f"{label}: n_valid {got.n_valid} != {want.n_valid}")
+    for f, x, y in zip(("a", "b", "c", "count", "nbc", "left_mask", "right_mask"),
+                       (*want.words, *want[1:5]), (*got.words, *got[1:5])):
+        check(x.dtype == y.dtype and np.array_equal(x, y), f"{label}: table {f} differs")
+
+
+def measured(torch, fn):
+    """fn() with the launch counters set to 0 just before and read just
+    after -> (result, wall s, device peak GiB above the bytes allocated
+    before, launches)."""
+    import gc
+
+    from supernova_tpu_torch.ops import kernels
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    return out, wall, (torch.cuda.max_memory_allocated() - base) / 2**30, launches
+
+
+def block_peak_gib(torch, rs, max_positions, dev):
+    """Device peak of counting the first block of rs cut at max_positions
+    (its inputs' copies to the card included)."""
+    from supernova_tpu_torch.kmer import count as kcount
+
+    blocks = kcount.split_readset_blocks(rs, max_positions)
+    p = kcount.prepare_reads_packed(blocks[0], pad_to_positions=max(int(b.offsets[-1]) for b in blocks))
+    t = lambda a: torch.from_numpy(a).to(dev)
+    _, _, peak, _ = measured(torch, lambda: int(kcount.count_block_raw_packed(
+        t(p["codes_packed"]), t(p["glen"]), t(p["read_bc"]), p["n_reads"], p["uniform_rl"],
+        p["nbp"]).n_valid))
+    return peak
+
+
+def phase_genome_count(torch, rs, want, raw_rows, dev):
+    """The genome's count partitioned + spilled, resumed, and OOM-halved:
+    each table equals the genome phase's (`want`, on the host)."""
+    import gc
+
+    from supernova_tpu_torch import convert
+    from supernova_tpu_torch.kmer import count as kcount
+
+    def run(label, fn, info):
+        table, wall, peak, launches = measured(torch, fn)
+        same_table(want, convert.table_to_numpy(table), f"genome count {label}")
+        print(f"[genome count] {label}: {info['blocks']} blocks at {info['block_positions']} "
+              f"positions ({info['spilled_blocks']} counted and spilled, "
+              f"{info['resumed_blocks']} resumed), {info['raw_rows']} raw rows in "
+              f"{info['partitions']} partition(s) of {info['partition_rows']} rows; wall "
+              f"{wall:.3f} s, device peak {peak:.3f} GiB, host peak RSS "
+              f"{info['peak_rss_gb']:.2f} GB; launches {launches}; table identical")
+        return launches
+
+    with tempfile.TemporaryDirectory() as d:
+        for label in ("(a) partitioned + spilled", "(b) resumed"):
+            info = {}
+            launches = run(label, lambda: kcount.count_readset_blocked(
+                rs, dev, merge_rows=raw_rows // 3, spill_dir=f"{d}/spill", info=info), info)
+            check(info["partitions"] >= 4, f"{info['partitions']} merge partitions < 4")
+            check(launches["sort"] > 0 and launches["compact"] >= info["partitions"],
+                  f"genome count {label}: the merge's kernels were not launched")
+        check(info["resumed_blocks"] == info["blocks"] and info["spilled_blocks"] == 0,
+              "genome count: a block was not resumed")
+        check(launches["kmer_extract"] == 0 and launches["run_reduce"] == 0,
+              "genome count: a resumed block was recounted")
+
+    p96 = block_peak_gib(torch, rs, kcount.BLOCK_POSITIONS, dev)
+    p48 = block_peak_gib(torch, rs, kcount.BLOCK_POSITIONS // 2, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    target = int((p96 + p48) / 2 * 2**30)
+    check(free > target, f"{free} bytes free < {target}")
+    ballast = torch.empty(free - target, dtype=torch.uint8, device=dev)
+    print(f"[genome count] count peak of one block: {p96:.3f} GiB at "
+          f"{kcount.BLOCK_POSITIONS} positions, {p48:.3f} GiB at {kcount.BLOCK_POSITIONS // 2}; "
+          f"a {ballast.numel() / 2**30:.3f} GiB ballast leaves "
+          f"{torch.cuda.mem_get_info()[0] / 2**30:.3f} GiB free")
+    info = {}
+    try:
+        launches = run("(c) OOM-halved", lambda: kcount.count_readset(rs, dev, info=info), info)
+    finally:
+        del ballast
+    check(info["oom_retries"] >= 1, "genome count (c): the ballast caused no OOM retry")
+    for name, c in launches.items():
+        check(c > 0, f"genome count (c): kernel {name} was not launched")
+    print(f"[genome count] (c) OOM retries {info['oom_retries']}")
+
+
+# the reference's 30 Mb run (artifacts/val30mb_r5/run.log): 15 blocks of
+# ~31.8M raw rows, 473,961,288 in all, ~31.2M kmers kept
+SCALE = dict(n_blocks=15, rows=473_961_288, kmers=31_200_000, absent=2)
+
+
+def scale_blocks(torch, sd, dev, n_blocks, rows, kmers, absent, seed=30):
+    """Synthetic raw blocks built on the card and spilled to `sd`: genome
+    kmer g in every block i but those with (7 g + i) % n_blocks < absent,
+    with count 1-6, nbc 1-3 and random masks a block (all pass the filter);
+    the other rows single-block "error" kmers of count 1 and nbc 1
+    (dropped).  Words: an odd-multiplier bijection of the id (distinct
+    leading words), a second hash, the id.  -> (blocks as memory maps,
+    the kept count sum the construction implies)."""
+    from supernova_tpu_torch.core.kmer_codec import W3
+    from supernova_tpu_torch.kmer import count as kcount
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    errors = rows - kmers * (n_blocks - absent)
+    gid = torch.arange(kmers, device=dev)
+    count_sum = 0
+    for i in range(n_blocks):
+        genome = gid[(gid * 7 + i) % n_blocks >= absent]
+        ng = genome.shape[0]
+        ids = torch.cat([genome, kmers + torch.arange(errors * i // n_blocks,
+                                                      errors * (i + 1) // n_blocks, device=dev)])
+        n = ids.shape[0]
+        rand = lambda lo, hi, k: torch.randint(lo, hi, (k,), device=dev, generator=g,
+                                               dtype=torch.int32)
+        count = torch.ones(n, dtype=torch.int32, device=dev)
+        count[:ng] = rand(1, 7, ng)
+        nbc = torch.ones_like(count)
+        nbc[:ng] = rand(1, 4, ng)
+        ign = torch.zeros_like(count)
+        ign[:ng] = (torch.rand(ng, device=dev, generator=g) < 0.1).int()
+        stats = (nbc << 9) | (rand(0, 256, n) << 1) | ign
+        count_sum += int(count[:ng].sum())
+        a = (ids * 2654435761 + 12345) & 0xFFFFFFFF
+        order = torch.sort(a).indices
+        raw = kcount.RawBlockTable(
+            W3(a[order], ((ids * 40503 + 17) & 0xFFFFFFFF)[order], ids[order]),
+            count[order], stats[order], torch.tensor(n))
+        sd.save(i, kcount.raw_block_columns(raw))
+        del raw, ids, a, order
+    return [sd.load(i) for i in range(n_blocks)], count_sum
+
+
+def phase_scale_merge(torch, dev, n_blocks, rows, kmers, absent):
+    """The partitioned merge and the adjacency recompute at the size of the
+    reference's 30 Mb run, under the card's own budget and cut into >= 4
+    partitions: equal tables, the n_valid and kept count sum the
+    construction implies, strictly ascending."""
+    from supernova_tpu_torch import convert
+    from supernova_tpu_torch.core import kmer_codec as kc
+    from supernova_tpu_torch.kmer import count as kcount
+    from supernova_tpu_torch.kmer.spill import SpillDir
+
+    dev = torch.device(dev)
+    print(f"[scale] host RSS before the phase {kcount._rss_gb():.2f} GB")
+    t0 = time.perf_counter()
+    with SpillDir(None, {}) as sd:
+        blocks, count_sum = scale_blocks(torch, sd, dev, n_blocks, rows, kmers, absent)
+        print(f"[scale] {n_blocks} sorted raw blocks, {sum(len(b[0]) for b in blocks)} raw rows "
+              f"({kmers} kmers in {n_blocks - absent} blocks each, the rest single-block "
+              f"count-1 kmers) built on the card and spilled at 20 B a row in "
+              f"{time.perf_counter() - t0:.1f} s")
+        tables = []
+        for label, merge_rows, min_parts in (("card budget", None, 2), ("cut", rows // 3, 4)):
+            torch.cuda.empty_cache()
+            budget = kcount.merge_row_limit(dev)
+            info = {}
+            table, merge_s, merge_peak, ml = measured(torch, lambda: kcount.merge_blocks(
+                blocks, dev, kcount.MIN_FREQ, kcount.MIN_BC, merge_rows, info))
+            parts = info["partitions"]
+            check(parts >= min_parts, f"scale merge ({label}): {parts} partitions < {min_parts}")
+            check(ml["sort"] >= parts and ml["compact"] >= parts,
+                  f"scale merge ({label}): K4/K2 not launched in every partition")
+            merge_per_row = merge_peak * 2**30 / max(info["partition_rows"])
+            check(merge_per_row <= kcount.MERGE_BYTES_PER_ROW,
+                  f"scale merge took {merge_per_row:.1f} B/row > MERGE_BYTES_PER_ROW")
+            m = table.words.a.shape[0]
+            chunk = kcount.join_chunk_rows(dev, m)
+            table, fin_s, fin_peak, fl = measured(torch, lambda: kcount.recompute_adjacencies(table))
+            join_per_row = fin_peak * 2**30 / (m + chunk)
+            check(join_per_row <= kcount.JOIN_BYTES_PER_ROW,
+                  f"recompute took {join_per_row:.1f} B/joined row > JOIN_BYTES_PER_ROW")
+            n = int(table.n_valid)
+            kept = int(table.count[:n].sum())
+            check(n == kmers, f"scale merge ({label}): n_valid {n} != {kmers}")
+            check(kept == count_sum, f"scale merge ({label}): kept count sum {kept} != {count_sum}")
+            w = table.words
+            check(bool(kc.lex_lt(kc.W3(w.a[: n - 1], w.b[: n - 1], w.c[: n - 1]),
+                                 kc.W3(w.a[1:n], w.b[1:n], w.c[1:n])).all()),
+                  f"scale merge ({label}): table not strictly ascending")
+            print(f"[scale] merge ({label}, budget {budget} rows): {parts} partitions of "
+                  f"{info['partition_rows']} raw rows; wall {merge_s:.3f} s, device peak "
+                  f"{merge_peak:.3f} GiB = {merge_per_row:.1f} B a row of the largest partition "
+                  f"(MERGE_BYTES_PER_ROW {kcount.MERGE_BYTES_PER_ROW}); K4 "
+                  f"{ml['sort'] / parts:.2f}, K2 {ml['compact'] / parts:.2f} launches a partition; "
+                  f"host peak RSS {info['peak_rss_gb']:.2f} GB")
+            print(f"[scale] finalize ({label}): adjacency recompute of {m} rows, query chunks of "
+                  f"{chunk}: wall {fin_s:.3f} s, device peak {fin_peak:.3f} GiB = "
+                  f"{join_per_row:.1f} B a joined row (JOIN_BYTES_PER_ROW "
+                  f"{kcount.JOIN_BYTES_PER_ROW}), K4 {fl['sort']} launches; n_valid {n}, kept "
+                  f"count sum {kept}: as constructed; strictly ascending")
+            tables.append(convert.table_to_numpy(table))
+            del table
+        del blocks
+    same_table(tables[0], tables[1], "scale merge")
+    print("[scale] the card-budget and the cut merges give the same table")
 
 
 def merge_shaped_input(torch, rows, distinct, seed):
@@ -495,11 +727,14 @@ def main() -> int:
     rs_genome = datasets.simulate(datasets.GENOME, datasets.GENOME_SEED)
     print(f"[data] genome: {rs_genome.n_reads} reads, {int(rs_genome.offsets[-1])} bases "
           f"simulated in {time.perf_counter() - t0:.1f} s")
-    launches, crec, kmers = phase_slice(torch, rs_genome, "genome", min_blocks=2)
+    launches, crec, table = phase_slice(torch, rs_genome, "genome", min_blocks=2)
+    torch.cuda.empty_cache()
+    phase_genome_count(torch, rs_genome, table, crec["raw_rows"], dev)
     del rs_genome
+    phase_scale_merge(torch, dev, **SCALE)
     phase_merge(torch, crec["raw_rows"])
     torch.cuda.empty_cache()
-    phase_graph_sort(torch, kmers)
+    phase_graph_sort(torch, table.n_valid)
 
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "supernova_tpu"))
     check(not jax_mods, f"the port imported {jax_mods[:5]}")

@@ -18,15 +18,20 @@ cumsum/cummax branch.  The two branches differ only in `nbc` above 4095
 Readsets above BLOCK_POSITIONS flat bases take the blocked count
 (`count_readset_blocked`): the readset is cut at barcode boundaries into
 blocks, each block is counted WITHOUT the filter into a raw table of its
-distinct kmers (kept rows pulled to host memory), and the concatenated raw
-rows go back to the card for one merge + filter.  Bit-identical to the
-single-block count.  Left out (each raises NotImplementedError where it
-would be needed): the partitioned host merge for raw rows above the
-card's merge budget, blocked counting of mixed-length readsets, and the
-reference's spill/resume and OOM-halving retry.
+distinct kmers, spilled to disk at 20 B a row and memory-mapped back
+(kmer/spill.py; a killed count resumes block by block), and the raw rows
+are merged + filtered on the card: in one merge when they fit the card's
+merge budget, else in kmer-range partitions, each merged on the card and
+pulled back, then finalized on the card (trim + chunked adjacency
+recompute).  `count_readset` halves the block size and retries when the
+card runs out of memory.  Bit-identical to the single-block count.  Left
+out (raises NotImplementedError): blocked counting of mixed-length
+readsets.
 """
 from __future__ import annotations
 
+import gc
+import logging
 from typing import NamedTuple
 
 import numpy as np
@@ -38,6 +43,9 @@ from ..ingest.feudal import pack_codes
 from ..ingest.reads import ReadSet
 from ..ops import segments as seg
 from ..ops.kernels.run_reduce import run_reduce, run_stats_plain
+from . import spill
+
+log = logging.getLogger("supernova_tpu_torch")
 
 MIN_QUAL = 7
 MIN_FREQ = 3
@@ -51,10 +59,17 @@ READ_BUCKET = 1024  # read-count padding
 # (supernova_tpu/kmer/count.py BLOCK_POSITIONS); larger readsets go through
 # the blocked count.  The output does not depend on the block size.
 BLOCK_POSITIONS = 96_000_000
+# count_readset halves the block size on a device OOM down to this
+MIN_BLOCK_POSITIONS = 24_000_000
 # peak device bytes per raw row of merge_raw_blocks, its inputs included,
-# when every row is a distinct kmer (its worst case): 219.6 measured on an
+# when every row is a distinct kmer (its worst case): 178.7 measured on an
 # H100 by chip_smoke.py's merge phase, rounded up
-MERGE_BYTES_PER_ROW = 224
+MERGE_BYTES_PER_ROW = 192
+# peak device bytes per joined row (table + query chunk) of one membership
+# join of recompute_adjacencies, the chunk's neighbour words included:
+# 153.1 measured on an H100 by chip_smoke.py's scale phase (a chunk of the
+# whole table, the costliest per row), rounded up
+JOIN_BYTES_PER_ROW = 160
 
 
 class KmerTable(NamedTuple):
@@ -172,19 +187,45 @@ def count_kmers(codes_ext, pos_read, glen_pos, bc_pos, min_freq: int = MIN_FREQ,
     return _reduce_packed(canon, pk, min_freq, min_bc)
 
 
-def recompute_adjacencies(table: KmerTable) -> KmerTable:
+def free_device_bytes(device: torch.device) -> int:
+    """The card's free memory, the caching allocator's idle bytes included."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def join_chunk_rows(device: torch.device, m: int) -> int:
+    """Query rows a membership join of recompute_adjacencies takes beside
+    its m table rows: all m where table + queries fit the card's free
+    memory at JOIN_BYTES_PER_ROW, else what fits (at least 2^20).  The CPU
+    (the tests' device) sets no limit."""
+    m = max(m, 1)
+    if device.type != "cuda":
+        return m
+    return min(m, max(1 << 20, free_device_bytes(device) // JOIN_BYTES_PER_ROW - m))
+
+
+def recompute_adjacencies(table: KmerTable, chunk: int | None = None) -> KmerTable:
     """Intersect observed extension masks with table membership
-    (KmerDict::recomputeAdjacencies)."""
+    (KmerDict::recomputeAdjacencies).
+
+    The table's rows are queried `chunk` rows at a time (join_chunk_rows by
+    default), so each of the 8 sort-merge joins a chunk takes sorts the
+    table plus one chunk, not the table plus all its rows: the reference's
+    bounded-memory recompute (recompute_adjacencies_host), on the card."""
     words = table.words
+    m = words.a.shape[0]
+    chunk = chunk or join_chunk_rows(words.a.device, m)
     new_r = torch.zeros_like(table.right_mask)
     new_l = torch.zeros_like(table.left_mask)
-    for b in range(4):
-        succ, _ = kc.canonicalize(kc.successor_words(words, b))
-        _, found = kc.lookup_words_merge(words, succ)
-        new_r |= found.to(new_r.dtype) << b
-        pred, _ = kc.canonicalize(kc.predecessor_words(words, b))
-        _, found = kc.lookup_words_merge(words, pred)
-        new_l |= found.to(new_l.dtype) << b
+    for s in range(0, m, chunk):
+        q = W3(*(w[s : s + chunk] for w in words))
+        for b in range(4):
+            succ, _ = kc.canonicalize(kc.successor_words(q, b))
+            _, found = kc.lookup_words_merge(words, succ)
+            new_r[s : s + chunk] |= found.to(new_r.dtype) << b
+            pred, _ = kc.canonicalize(kc.predecessor_words(q, b))
+            _, found = kc.lookup_words_merge(words, pred)
+            new_l[s : s + chunk] |= found.to(new_l.dtype) << b
     return table._replace(
         left_mask=table.left_mask & new_l, right_mask=table.right_mask & new_r
     )
@@ -445,22 +486,151 @@ def merge_row_limit(device: torch.device) -> int:
     The CPU (the tests' device) sets no limit."""
     if device.type != "cuda":
         return 1 << 62
-    free, _ = torch.cuda.mem_get_info(device)
-    idle = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-    return (free + idle) // MERGE_BYTES_PER_ROW
+    return free_device_bytes(device) // MERGE_BYTES_PER_ROW
+
+
+def _u32_bits(w):
+    """int64 words in [0, 2^32) -> int32 tensors with the same 32 bits."""
+    return (w - ((w & 0x80000000) << 1)).to(torch.int32)
+
+
+def _widen(x):
+    """int32 bit patterns -> the port's int64 words in [0, 2^32)."""
+    return x.long() & 0xFFFFFFFF
+
+
+def raw_block_columns(raw: RawBlockTable) -> tuple[np.ndarray, ...]:
+    """A block's kept raw rows as the spill's five host columns
+    (spill.COLUMN_DTYPES): words narrowed to 32 bits on the device, then
+    one copy each to the host."""
+    nv = int(raw.n_valid)
+    words = [_u32_bits(w[:nv]).cpu().numpy().view(np.uint32) for w in raw.words]
+    return (*words, raw.count[:nv].cpu().numpy(), raw.stats[:nv].cpu().numpy().view(np.uint32))
+
+
+class Partition(NamedTuple):
+    """One kmer range of the partitioned merge: leading words below
+    `hi_word`, made of rows [lo[i], hi[i]) of each block i."""
+
+    hi_word: int
+    lo: list
+    hi: list
+    rows: int
+
+
+def plan_partitions(a_cols, merge_rows: int) -> list[Partition]:
+    """Cut the blocks' raw rows into kmer-range partitions of about 0.75 x
+    merge_rows rows (one partition when they all fit merge_rows).
+
+    Each block is sorted by (a, b, c), so the splitters are quantiles of a
+    sample of the leading words `a` (deduplicated: a partition never cuts
+    a word, so partitions are kmer-disjoint), and each block gives each
+    partition the slice that searchsorted finds on its `a` column
+    (reference: _merge_blocks_partitioned)."""
+    nblk = len(a_cols)
+    tot = sum(len(a) for a in a_cols)
+    if tot <= merge_rows:
+        return [Partition(1 << 32, [0] * nblk, [len(a) for a in a_cols], tot)]
+    n_parts = max(2, -(-tot // max(1, int(merge_rows * 0.75))))
+    sample = np.concatenate([a[:: max(1, len(a) // 65536)] for a in a_cols])
+    sample.sort()
+    qs = np.unique(sample[(np.arange(1, n_parts) * (len(sample) / n_parts)).astype(np.int64)])
+    # the last bound exceeds every word (a real kmer's leading word may be
+    # 0xFFFFFFFF); a uint32 bound keeps searchsorted from copying a column
+    parts, lo = [], [0] * nblk
+    for hi_word in [*(int(q) for q in qs), 1 << 32]:
+        hi = [len(a) if hi_word >> 32 else int(np.searchsorted(a, np.uint32(hi_word)))
+              for a in a_cols]
+        rows = sum(h - l for h, l in zip(hi, lo))
+        if rows:
+            parts.append(Partition(hi_word, lo, hi, rows))
+        lo = hi
+    return parts
+
+
+def merge_blocks(blocks, device, min_freq: int, min_bc: int, merge_rows: int | None = None,
+                 info: dict | None = None) -> KmerTable:
+    """Blocks' raw rows (five host columns a block, spill.COLUMN_DTYPES,
+    each block sorted) -> the filtered table on `device`, trimmed to the
+    geometric-ladder row count (no adjacency recompute yet).
+
+    The rows are merged in kmer-range partitions of plan_partitions
+    (merge_rows defaults to merge_row_limit: one partition when every row
+    fits one merge).  Each partition's block slices are gathered into
+    pinned host buffers (one a column, sized once at the largest
+    partition), copied to the card, merged by merge_raw_blocks (K4, K2) and,
+    when there are several, pulled back: partitions are ascending kmer
+    ranges, so their kept rows concatenate into the sorted table.  A
+    partition above merge_rows (one leading word dominating) runs widened
+    if the card's budget takes it, else raises.  info receives partitions,
+    partition_rows and peak_rss_gb."""
+    from ..dbg.build import trim_table
+
+    device = torch.device(device)
+    limit = merge_row_limit(device)
+    merge_rows = merge_rows or limit
+    parts = plan_partitions([b[0] for b in blocks], merge_rows)
+    for p in parts:
+        if p.rows > max(merge_rows, limit):
+            raise RuntimeError(
+                f"merge partition below leading word {p.hi_word} holds {p.rows} raw rows, "
+                f"more than one device merge takes ({limit} rows at {MERGE_BYTES_PER_ROW} "
+                "B/row): one leading word dominates the raw rows"
+            )
+    if info is not None:
+        info.update(partitions=len(parts), partition_rows=[p.rows for p in parts])
+    pin = device.type == "cuda"
+    bufs = [torch.empty(max(p.rows for p in parts), dtype=torch.int32, pin_memory=pin)
+            for _ in spill.COLUMN_DTYPES]
+    kept = []
+    for p in parts:
+        for j, (buf, dt) in enumerate(zip(bufs, spill.COLUMN_DTYPES)):
+            dst, k = buf.numpy().view(dt), 0
+            for b, lo, hi in zip(blocks, p.lo, p.hi):
+                dst[k : k + hi - lo] = b[j][lo:hi]
+                k += hi - lo
+        _sample_rss(info)
+        cols = [buf[: p.rows].to(device, non_blocking=True) for buf in bufs]
+        words = [_widen(c) for c in cols[:3]]
+        count, stats = cols[3], cols[4]
+        del cols
+        table = merge_raw_blocks(*words, count, stats, min_freq, min_bc)
+        del words, count, stats
+        if len(parts) == 1:
+            break
+        nv = int(table.n_valid)  # also: the pinned buffers are free again
+        kept.append([_u32_bits(w[:nv]).cpu() for w in table.words]
+                    + [x[:nv].cpu() for x in table[1:5]])
+        log.info("blocked count: merge partition <%d: %d rows -> %d kept - rss=%.1f GB",
+                 p.hi_word, p.rows, nv, _rss_gb())
+        del table
+    del bufs
+    if kept:
+        cols = [torch.cat(c).to(device) for c in zip(*kept)]
+        del kept
+        n = cols[0].shape[0]
+        table = KmerTable(W3(*(_widen(c) for c in cols[:3])), *cols[3:],
+                          torch.tensor(n, dtype=torch.int64, device=device))
+        del cols
+    _sample_rss(info)
+    return trim_table(table)
 
 
 def count_readset_blocked(rs, device, min_freq: int | None = None, min_bc: int | None = None,
-                          max_positions: int | None = None, info: dict | None = None
-                          ) -> KmerTable:
-    """Blocked count: per-block unfiltered raw tables (distinct-kmer scale,
-    pulled to host memory block by block), then ONE device merge + filter
-    and the adjacency recompute.  Bit-identical to the single-block count.
+                          max_positions: int | None = None, merge_rows: int | None = None,
+                          spill_dir=None, info: dict | None = None) -> KmerTable:
+    """Blocked count: per-block unfiltered raw tables (distinct-kmer scale),
+    spilled block by block (kmer/spill.py), then merge_blocks and the
+    adjacency recompute on the card.  Bit-identical to the single-block
+    count, whatever the block size and the partitions.
 
-    max_positions: bases per block (BLOCK_POSITIONS when None).  info, when
-    given, receives blocks, block_rows and raw_rows."""
-    from ..dbg.build import trim_table
-
+    max_positions: bases per block (BLOCK_POSITIONS when None).
+    merge_rows: raw rows per device merge (merge_row_limit when None).
+    spill_dir: where the blocks spill; a killed count resumes there (blocks
+    with a done marker are not recounted) and its owner removes it; None
+    spills to a temporary directory removed on return.  info, when given,
+    receives blocks, block_rows, raw_rows, block_positions, spilled_blocks,
+    resumed_blocks, and merge_blocks' keys."""
     device = torch.device(device)
     min_freq = MIN_FREQ if min_freq is None else min_freq
     min_bc = MIN_BC if min_bc is None else min_bc
@@ -469,52 +639,123 @@ def count_readset_blocked(rs, device, min_freq: int | None = None, min_bc: int |
             "blocked counting of mixed-length readsets (the reference's "
             "count_block_raw) is not ported: ROADMAP queue"
         )
-    blocks = split_readset_blocks(rs, max_positions or BLOCK_POSITIONS)
+    max_positions = max_positions or BLOCK_POSITIONS
+    blocks = split_readset_blocks(rs, max_positions)
     # every block pads to the largest one, as the reference's shared shape
     pad_pos = max(int(b.offsets[-1]) for b in blocks)
+    meta = dict(n_blocks=len(blocks), pad_pos=pad_pos, pad_rd=max(b.n_reads for b in blocks),
+                n_reads=int(rs.n_reads), min_freq=int(min_freq), min_bc=int(min_bc),
+                packed=True)
     t = lambda a: torch.from_numpy(a).to(device)
-    parts = []
-    for b in blocks:
-        p = prepare_reads_packed(b, pad_to_positions=pad_pos)
-        raw = count_block_raw_packed(
-            t(p["codes_packed"]), t(p["glen"]), t(p["read_bc"]), p["n_reads"],
-            p["uniform_rl"], p["nbp"],
-        )
-        nv = int(raw.n_valid)
-        parts.append(tuple(x[:nv].cpu() for x in (*raw.words, raw.count, raw.stats)))
-        del raw
-    tot = sum(p[0].shape[0] for p in parts)
+    with spill.SpillDir(spill_dir, meta) as sd:
+        pending = [i for i in range(len(blocks)) if not sd.done(i)]
+        log.info("blocked count: %d blocks at <=%d positions, %d already spilled - %s",
+                 len(blocks), max_positions, len(blocks) - len(pending), _device_memory(device))
+        for i in pending:
+            p = prepare_reads_packed(blocks[i], pad_to_positions=pad_pos)
+            raw = count_block_raw_packed(
+                t(p["codes_packed"]), t(p["glen"]), t(p["read_bc"]), p["n_reads"],
+                p["uniform_rl"], p["nbp"],
+            )
+            # drop the block's device buffers before the next block (and,
+            # after the last, before the merge reads its budget)
+            rows = len(sd.save(i, raw_block_columns(raw))[0])
+            del raw
+            _sample_rss(info)
+            log.info("blocked count: block %d/%d -> %d rows - rss=%.1f GB",
+                     i + 1, len(blocks), rows, _rss_gb())
+        cols = [sd.load(i) for i in range(len(blocks))]
+        block_rows = [len(c[0]) for c in cols]
+        if info is not None:
+            info.update(blocks=len(blocks), block_rows=block_rows, raw_rows=sum(block_rows),
+                        block_positions=max_positions, spilled_blocks=len(pending),
+                        resumed_blocks=len(blocks) - len(pending))
+        log.info("blocked count: merging %d raw rows - %s, rss=%.1f GB",
+                 sum(block_rows), _device_memory(device), _rss_gb())
+        table = merge_blocks(cols, device, min_freq, min_bc, merge_rows, info)
+        del cols  # release the memory maps before the directory goes
+    return recompute_adjacencies(table)
+
+
+def _rss_gb() -> float:
+    """The process's resident set in GB (reference: count.py _rss_gb)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    return int(line.split()[1]) / 1e6
+    except OSError:
+        pass
+    return -1.0
+
+
+def _sample_rss(info: dict | None) -> None:
+    """Keep the largest _rss_gb() seen as info["peak_rss_gb"]."""
     if info is not None:
-        info.update(blocks=len(blocks), block_rows=[p[0].shape[0] for p in parts],
-                    raw_rows=tot)
-    limit = merge_row_limit(device)
-    if tot > limit:
-        raise NotImplementedError(
-            f"{tot} raw rows exceed one device merge ({limit} rows at "
-            f"{MERGE_BYTES_PER_ROW} B/row); the partitioned host merge is not "
-            "ported: ROADMAP queue"
-        )
-    cols = [torch.cat([p[j] for p in parts]).to(device) for j in range(5)]
-    del parts
-    table = merge_raw_blocks(*cols, min_freq, min_bc)
-    del cols
-    return recompute_adjacencies(trim_table(table))
+        info["peak_rss_gb"] = max(info.get("peak_rss_gb", 0.0), _rss_gb())
 
 
-def count_readset(rs, device, min_freq: int | None = None,
-                  min_bc: int | None = None, info: dict | None = None) -> KmerTable:
+def _device_memory(device: torch.device) -> str:
+    """The card's allocator state in one line, for OOM forensics ('' off
+    CUDA); the counterpart of the reference's _hbm_in_use."""
+    if device.type != "cuda":
+        return ""
+    gib = 1 << 30
+    return (f"device {torch.cuda.memory_allocated(device) / gib:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved(device) / gib:.2f} reserved, "
+            f"peak {torch.cuda.max_memory_allocated(device) / gib:.2f}")
+
+
+def _free_failed_attempt(e: BaseException) -> None:
+    """Release a failed attempt's device memory before the retry: the
+    traceback of every exception in the chain pins the raising frames and
+    with them the attempt's tensors, so clear them all, collect, and
+    release the caching allocator's idle blocks."""
+    seen = set()
+    x = e
+    while x is not None and id(x) not in seen:
+        seen.add(id(x))
+        x.__traceback__ = None
+        x = x.__cause__ or x.__context__
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def count_readset(rs, device, min_freq: int | None = None, min_bc: int | None = None,
+                  info: dict | None = None, spill_dir=None) -> KmerTable:
     """ReadSet -> filtered, adjacency-true KmerTable on `device`.
 
     Readsets above BLOCK_POSITIONS bases take the blocked count (`info`
-    receives its block and row counts).  The table is trimmed to the
-    geometric-ladder row count before the adjacency recompute, so its
-    membership joins run at table scale."""
+    receives its counts, and oom_retries; spill_dir as there).  On a device
+    OOM it halves the block size and retries, down to MIN_BLOCK_POSITIONS
+    (smaller blocks on the same card: the table does not depend on the
+    block size); any other error, or an OOM at the smallest size, raises.
+    The table is trimmed to the geometric-ladder row count before the
+    adjacency recompute, so its membership joins run at table scale."""
     from ..dbg.build import trim_table
 
+    device = torch.device(device)
     min_freq = MIN_FREQ if min_freq is None else min_freq
     min_bc = MIN_BC if min_bc is None else min_bc
     if int(rs.offsets[-1]) > BLOCK_POSITIONS:
-        return count_readset_blocked(rs, device, min_freq, min_bc, info=info)
+        max_pos, retries = BLOCK_POSITIONS, 0
+        while True:
+            try:
+                table = count_readset_blocked(rs, device, min_freq, min_bc, max_positions=max_pos,
+                                              spill_dir=spill_dir, info=info)
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                if max_pos // 2 < MIN_BLOCK_POSITIONS:
+                    raise
+                log.warning("count: device OOM at block=%d positions (%s; %.120s); "
+                            "retrying with block=%d", max_pos, _device_memory(device), e,
+                            max_pos // 2)
+                _free_failed_attempt(e)
+                max_pos //= 2
+                retries += 1
+        if info is not None:
+            info["oom_retries"] = retries
+        return table
     inp = prepare_reads(rs, device)
     table = count_kmers(
         inp["codes_ext"], inp["pos_read"], inp["glen_pos"], inp["bc_pos"],

@@ -5,8 +5,9 @@
 
 as supernova_tpu/pipeline/run.py runs it on one device.  Readsets above
 one count block take the blocked count and pather; the count stage's
-record then holds its block and raw row counts.  stage_count and
-stage_graph write kmers.npz, stats/histogram_kmer_count.json and graph.npz
+record then holds its block, row, partition, spill and OOM-retry counts.
+stage_count and stage_graph write kmers.npz,
+stats/histogram_kmer_count.json and graph.npz
 in the reference's formats and log kmers_distinct, n_edges, edge_N50 and
 assembly_checksum.  stage_paths stops at the raw pather output: the
 qual-tolerant rescue and extend_paths (and with them paths.npz) are not
@@ -16,6 +17,7 @@ stage.
 from __future__ import annotations
 
 import logging
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -121,8 +123,14 @@ class Pipeline:
         return rs
 
     def stage_count(self, rs: ReadSet) -> kcount.KmerTable:
+        """Count into kmers.npz and the spectrum histogram.  A blocked count
+        spills its blocks to count_spill/ (a killed run resumes there; the
+        reference's run.py:254-258) and its counts go into the stage's
+        record; the spills go once kmers.npz is written."""
+        spill_dir = self.outdir / "count_spill"
         table = dbuild.trim_table(kcount.count_readset(
-            rs, self.device, info=self.stage_records.setdefault("count", {})))
+            rs, self.device, info=self.stage_records.setdefault("count", {}),
+            spill_dir=spill_dir))
         host = convert.table_to_numpy(table)
         n = host.n_valid
         self.stats.log("kmers_distinct", n, "distinct filtered 48-mers", stage="count")
@@ -141,6 +149,7 @@ class Pipeline:
             right_mask=host.right_mask,
             n_valid=np.int64(n),
         )
+        shutil.rmtree(spill_dir, ignore_errors=True)
         return table
 
     def stage_graph(self, table: kcount.KmerTable) -> dgraph.BaseGraph:

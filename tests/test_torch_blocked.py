@@ -180,7 +180,10 @@ def test_pipeline_blocked_equals_unblocked(rs, tmp_path, monkeypatch):
     monkeypatch.setattr(kcount, "BLOCK_POSITIONS", MAX_POS)
     pl = Pipeline(tmp_path / "blocked", device="cpu")
     _, _, rp2 = pl.run(rs)
-    assert pl.stage_records["count"]["blocks"] >= 3
+    rec = pl.stage_records["count"]
+    assert rec["blocks"] >= 3 and rec["spilled_blocks"] == rec["blocks"]
+    assert rec["partitions"] == 1 and rec["oom_retries"] == 0
+    assert not (tmp_path / "blocked" / "count_spill").exists()
     for name in ("kmers.npz", "graph.npz"):
         z1, z2 = np.load(tmp_path / "one" / name), np.load(tmp_path / "blocked" / name)
         assert z1.files == z2.files
@@ -192,9 +195,17 @@ def test_pipeline_blocked_equals_unblocked(rs, tmp_path, monkeypatch):
     assert pl.stats.get("placed_perc") > 90
 
 
-def test_blocked_paths_raise_where_not_ported(rs, monkeypatch):
+def test_blocked_paths_raise_where_not_ported(rs, port_blocked, monkeypatch):
+    """Mixed-length readsets still raise above one block.  Raw rows above
+    the card's merge budget take the partitioned merge: the same table."""
     with pytest.raises(NotImplementedError, match="mixed-length"):
         kcount.count_readset_blocked(mixed_length_readset(), "cpu", max_positions=10_000)
     monkeypatch.setattr(kcount, "merge_row_limit", lambda device: 1000)
-    with pytest.raises(NotImplementedError, match="partitioned host merge"):
-        kcount.count_readset_blocked(rs, "cpu", max_positions=MAX_POS)
+    info = {}
+    table = kcount.count_readset_blocked(rs, "cpu", max_positions=MAX_POS, info=info)
+    assert info["partitions"] >= info["raw_rows"] // 1000
+    assert_tables_equal(rcount.count_readset(rs), table)
+    want, got = convert.table_to_numpy(port_blocked[0]), convert.table_to_numpy(table)
+    assert want.n_valid == got.n_valid
+    for x, y in zip((*want.words, *want[1:5]), (*got.words, *got[1:5])):
+        assert np.array_equal(x, y)

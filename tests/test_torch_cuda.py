@@ -303,19 +303,24 @@ def test_slice_cuda_equals_cpu(dev, tmp_path):
         assert np.array_equal(x[: rs.n_reads], y[: rs.n_reads])
 
 
-def test_blocked_slice_cuda_equals_cpu(dev, tmp_path, monkeypatch):
-    """~360 kb of reads cut into >= 3 count blocks: the blocked count, the
-    device merge and the blocked pather on CUDA give the CPU's kmers.npz,
-    graph.npz and ReadPaths, with every kernel launched."""
+def blocked_readset():
+    """~360 kb of 150 bp reads over 30 barcodes: >= 3 count blocks of 100 kb."""
     rng = np.random.default_rng(3)
     g = sim.random_genome(rng, 6000, n_repeat_chunks=2, repeat_len=150)
     _, hb = sim.diploidize(rng, g, 0.001)
     wl = sim.make_whitelist(rng, 128)
-    rs = ingest_sim(sim.simulate_linked_reads(
+    return ingest_sim(sim.simulate_linked_reads(
         rng, (g, hb), wl, n_barcodes=30, molecules_per_barcode=2,
         molecule_len=3000, coverage_per_molecule=2.0, error_rate=0.002,
         bc_error_rate=0.02,
     ), wl)
+
+
+def test_blocked_slice_cuda_equals_cpu(dev, tmp_path, monkeypatch):
+    """~360 kb of reads cut into >= 3 count blocks: the blocked count, the
+    device merge and the blocked pather on CUDA give the CPU's kmers.npz,
+    graph.npz and ReadPaths, with every kernel launched."""
+    rs = blocked_readset()
     monkeypatch.setattr(kcount, "BLOCK_POSITIONS", 100_000)
     kernels.reset_launch_counts()
     pg = Pipeline(tmp_path / "cuda", device="cuda")
@@ -329,3 +334,29 @@ def test_blocked_slice_cuda_equals_cpu(dev, tmp_path, monkeypatch):
             assert np.array_equal(zg[k], zc[k]), (name, k)
     for x, y in zip(convert.readpaths_to_numpy(rg), convert.readpaths_to_numpy(rc)):
         assert np.array_equal(x, y)
+
+
+def test_partitioned_count_cuda_equals_cpu(dev, tmp_path):
+    """The blocked count with its merge cut into >= 3 partitions on the card
+    and its blocks spilled equals the CPU's table bit for bit; the same call
+    then resumes every block from the spills and recounts none."""
+    rs = blocked_readset()
+    info = {}
+    want = convert.table_to_numpy(
+        kcount.count_readset_blocked(rs, "cpu", max_positions=100_000, info=info))
+    merge_rows = info["raw_rows"] // 3
+    for resumed in (False, True):
+        info = {}
+        kernels.reset_launch_counts()
+        got = convert.table_to_numpy(kcount.count_readset_blocked(
+            rs, "cuda", max_positions=100_000, merge_rows=merge_rows,
+            spill_dir=tmp_path / "spill", info=info))
+        launches = kernels.launch_counts()
+        assert info["partitions"] >= 3 and info["blocks"] >= 3
+        assert info["resumed_blocks"] == (info["blocks"] if resumed else 0)
+        assert info["spilled_blocks"] == (0 if resumed else info["blocks"])
+        assert launches["sort"] > 0 and launches["compact"] >= info["partitions"]
+        assert (launches["kmer_extract"] == 0) == resumed
+        assert want.n_valid == got.n_valid
+        for x, y in zip((*want.words, *want[1:5]), (*got.words, *got[1:5])):
+            assert x.dtype == y.dtype and np.array_equal(x, y)

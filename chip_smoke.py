@@ -21,13 +21,18 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      K3's and K2's launches are listed one by one with their device times
      (stats/kernel_phases.py);
   4. the slice on an 8 kb genome on CUDA and on the CPU plain path: the
-     KmerTable, every BaseGraph array and ReadPaths[:n_reads] identical;
+     KmerTable, every BaseGraph array, ReadPaths[:n_reads], the arrays of
+     paths.npz and ebcx.npz and the paths stats identical; then the same
+     on the genome cut to mixed lengths (every R1 23 bases shorter, as
+     ingest leaves a real 10x R1) with 300k-position blocks, so both take
+     the blocked mixed count and the blocked general pather;
   5. the slice at one block — a 2 Mb diploid genome (het 0.001), 600
      barcodes x 10 molecules x 50 kb, ~600k 150 bp reads, ~45x — through
      Pipeline(device="cuda"): per-stage wall time and peak memory,
-     kmers_distinct, n_edges, placed_perc >= 95, BaseGraph.validate(), a
-     strictly ascending unique table, and every kernel launched (launch
-     counters reset just before the run);
+     kmers_distinct, n_edges, placed_perc >= 95 (rescued reads counted),
+     the rescue's and extend's host seconds, paths.npz and ebcx.npz
+     written, BaseGraph.validate(), a strictly ascending unique table, and
+     every kernel launched (launch counters reset just before the run);
   6. the same at genome scale (pipeline/datasets.py GENOME: 10 Mb, 3,000
      barcodes, ~3M reads, ~450M bases, ~45x), which takes the blocked
      count (>= 2 blocks spilled, one device merge) and the blocked pather;
@@ -39,7 +44,25 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      count peak but more than a 48M one's (both measured first), so it
      runs out of memory and halves its block size.  Each table equals the
      genome phase's bit for bit; wall, device peak, partitions, launches;
-  8. the partitioned merge at the size of the reference's 30 Mb run
+     the genome's first block counted from prepare_reads and from the
+     packed inputs it replaced (a yardstick): identical raw tables, walls;
+     then the general pather, with and without the tail cut, equal to the
+     fused one on the genome's first block;
+  8. the genome cut to mixed lengths (3M reads, 415.5M bases): first each
+     kernel against its twin at the shapes its first block gives them
+     (every position a sort row, the sorted stream ending in one sentinel
+     run; K3 with (1, 0) and with the filter, then alone on the real rows,
+     the sentinel run and its last half; K2 on both K3 outputs); then
+     through Pipeline(device="cuda") with the checks of 6: the blocked
+     mixed count and the blocked general pather; its count again at
+     48M-position blocks, equal to the Pipeline's table; its paths at
+     96M-position blocks, then beside a ballast between one 96M- and one
+     48M-position block's paths peak (both measured first): exactly one
+     OOM retry and the same ReadPaths;
+  9. build_links on the genome's table at the card's budget (one join)
+     and with the successor resolve in >= 4 chunks: equal links, each
+     run's peak bytes a joined row within LINK_BYTES_PER_ROW;
+ 10. the partitioned merge at the size of the reference's 30 Mb run
      (artifacts/val30mb_r5/run.log): 15 sorted synthetic raw blocks built
      on the card and spilled, 473,961,288 raw rows, 31,200,000 "genome"
      kmers in 13 of the 15 blocks each (kept) and single-block count-1
@@ -48,17 +71,19 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      equal tables, n_valid and the kept count sum the construction
      implies, strictly ascending; walls, device peaks and their bytes a
      row, host peak RSS, K4/K2 launches a partition;
-  9. K4 against its twin at the genome's merge shape (its raw row count,
+ 11. K4 against its twin at the genome's merge shape (its raw row count,
      3 keys) and at its graph's chain-order shape (2 keys, two nodes a
      kmer), and the merge's peak device bytes per raw row;
- 10. no module of the JAX package (or jax) was imported.
-Then one JSON line with the kernels (launches from the genome phase), the
+ 12. no module of the JAX package (or jax) was imported.
+Then one JSON line with the kernels (launches from the genome phase;
+mixed_launches from the mixed genome's; mixed_* times from 8), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}.  Exits
 nonzero without a GPU.
 """
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -75,12 +100,10 @@ KERNELS = {
     "compact": ("supernova_tpu_torch/csrc/compact.cu",
                 "supernova_tpu/ops/pallas/compact.py:115"),
 }
-# measurements a kernel's entry of the JSON line carries beyond the common
-# keys: K3 on long runs; K2's sector floor, its call with the count's fill
-# beside the sequence that call replaced, and the same at a raw block's shape
-EXTRA_KEYS = ("adversarial_ms", "sector_floor_ms", "fill_ms", "three_step_ms",
-              "fill_bound_ms", "fill_sector_floor_ms", "raw_shape", "raw_ms",
-              "raw_fill_ms", "raw_three_step_ms")
+# the keys every kernel's entry of the JSON line has; the entry also
+# carries the kernel's other measurements (K3 on long runs and on the mixed
+# block's parts; K2's sector floor and fill; every kernel's mixed_* keys)
+COMMON_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published device-memory rate
 
 
@@ -263,6 +286,110 @@ def phase_kernels(torch, rs, dev):
     return res
 
 
+def once_ms(torch, fn):
+    """fn() once, timed by CUDA events -> (result, ms)."""
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def phase_kernels_mixed(torch, rs, dev, res):
+    """K1/K4/K3/K2 against their plain twins at the shapes the first block
+    of the mixed-length genome gives them in the blocked count: every
+    position a sort row (no tail cut), so the sorted stream ends in one run
+    of sentinel rows, the positions that start no kmer.  K3 with (1, 0) as
+    the block calls it and with the count's filter; K2 on both outputs.
+    Then K3 on the stream's parts (the real rows; the sentinel run, whole
+    and its last half), which shows where K3's time goes.  Adds mixed_*
+    keys to the kernels' entries in `res`."""
+    from supernova_tpu_torch.kmer import count as kcount
+    from supernova_tpu_torch.ops.kernels import _lib
+    from supernova_tpu_torch.ops.kernels import kmer_extract as k1
+    from supernova_tpu_torch.ops.kernels import run_reduce as k3
+
+    blocks = kcount.split_readset_blocks(rs, kcount.BLOCK_POSITIONS)
+    inp = kcount.prepare_reads(blocks[0], dev, pad_to_positions=max(int(b.offsets[-1]) for b in blocks),
+                               pad_to_reads=max(b.n_reads for b in blocks))
+    check(inp["uniform_rl"] is None, "mixed kernels: the first block has uniform reads")
+    codes, n = inp["codes_ext"], inp["pos_read"].shape[0]
+    got = k1.sliding_words_cuda(codes, n)
+    ref = k1.sliding_words_plain(codes, n)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)), "K1 differs from plain (mixed block)")
+    res["kmer_extract"].update(
+        mixed_shape=f"{n} positions", mixed_max_abs_err=max_abs_err(torch, zip(got, ref)),
+        mixed_ms=median_ms(torch, lambda: k1.sliding_words_cuda(codes, n)),
+        mixed_plain_ms=median_ms(torch, lambda: k1.sliding_words_plain(codes, n)),
+        mixed_bound_ms=bound_ms(codes.numel() * 4 + n * 3 * 8))
+    print_kernel("kmer_extract (mixed block)", mixed_view(res["kmer_extract"]))
+    del got, ref
+
+    canon, pk = kcount.occurrence_rows(inp["codes_ext"], inp["pos_read"], inp["glen_pos"],
+                                       inp["bc_pos"], inp["uniform_rl"])
+    del inp, codes
+    rows = pk.shape[0]
+    r, perm = check_sort(torch, (*canon, pk), f"{rows} rows x 4 keys (mixed block)")
+    res["sort"].update({f"mixed_{k}": r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                     "bound_ms", "library_ms")})
+    ws, pk = canon.gather(perm), pk[perm]
+    del canon, perm
+
+    outs, k3res = {}, res["run_reduce"]
+    for (mf, mb), key in (((1, 0), "mixed"), ((kcount.MIN_FREQ, kcount.MIN_BC), "mixed_filtered")):
+        got = k3.run_reduce_cuda(ws.a, ws.b, ws.c, pk, mf, mb)
+        ref, plain = once_ms(torch, lambda: k3.run_reduce_plain(ws.a, ws.b, ws.c, pk, mf, mb))
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+              f"K3 differs from plain (mixed block, ({mf}, {mb}))")
+        k3res.update({
+            f"{key}_shape": f"{rows} rows, ({mf}, {mb})",
+            f"{key}_max_abs_err": max_abs_err(torch, zip(got, ref)),
+            f"{key}_ms": median_ms(torch, lambda: k3.run_reduce_cuda(ws.a, ws.b, ws.c, pk, mf, mb)),
+            f"{key}_plain_ms": plain,  # one call: the twin takes seconds here
+            f"{key}_bound_ms": bound_ms(rows * (4 * 8 + 1 + 4 + 4))})
+        print_kernel(f"run_reduce (mixed block, ({mf}, {mb}))", mixed_view(k3res, key))
+        outs[key] = got
+        del ref
+
+    # where K3's time goes: the real rows alone, then the sentinel run
+    # (every row past the last real one) whole and its last half
+    sent = k3.SENTINEL
+    n_real = int(((ws.a != sent) | (ws.b != sent) | (ws.c != sent)).sum())
+    run_rows = rows - n_real
+    tile = _lib.library().sn_run_reduce_tile_rows()
+    parts = {"real": (0, n_real), "sentinel_run": (n_real, rows),
+             "half_sentinel_run": (rows - run_rows // 2, rows)}
+    for key, (lo, hi) in parts.items():
+        cols = (ws.a[lo:hi], ws.b[lo:hi], ws.c[lo:hi], pk[lo:hi])
+        k3res[f"{key}_ms"] = median_ms(torch, lambda: k3.run_reduce_cuda(*cols, 1, 0))
+        k3res[f"{key}_rows"] = hi - lo
+    t = run_rows // tile
+    print(f"[kernels] run_reduce (mixed block): {rows} rows = {n_real} real + a sentinel run of "
+          f"{run_rows} ({t} tiles of {tile}): whole {k3res['mixed_ms']:.3f} ms, real rows "
+          f"{k3res['real_ms']:.3f} ms, the sentinel run {k3res['sentinel_run_ms']:.3f} ms, its "
+          f"last half {k3res['half_sentinel_run_ms']:.3f} ms (ratio "
+          f"{k3res['sentinel_run_ms'] / k3res['half_sentinel_run_ms']:.2f}; a tile k tiles into a "
+          f"run walks back over k / 32 steps of the tail aggregates: ~{t * t // 64} steps over "
+          "the run, 4x for 2x its length)")
+
+    # K2 on K3's outputs, with the fill (as the count calls it) and without
+    for key, label in (("mixed", "mixed block, raw"), ("mixed_filtered", "mixed block, filtered")):
+        keep, count, stats = outs.pop(key)
+        r = check_compact(torch, keep, (ws.a, ws.b, ws.c, count, stats), label)
+        res["compact"].update({f"{key}_{k}": r[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "fill_ms",
+            "fill_plain_ms", "fill_bound_ms")})
+        del keep, count, stats, r
+
+
+def mixed_view(r, key="mixed"):
+    """The `key`_* entries of a kernel's result under print_kernel's names."""
+    return {k: r[f"{key}_{k}"] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms")}
+
+
 # the count's tail fill: the sentinel in the three words, 0 in count and stats
 K2_FILLS = (0xFFFFFFFF,) * 3 + (0, 0)
 
@@ -338,39 +465,69 @@ def print_kernel(name, r):
           f"bound {r['bound_ms']:.3f} ms{lib}")
 
 
-def phase_small_slice(torch, rs):
-    """The slice on CUDA vs the CPU plain path: identical outputs."""
+def phase_small_slice(torch, rs, tag="small", block_positions=None):
+    """The slice on CUDA vs the CPU plain path: identical outputs (table,
+    every BaseGraph array, ReadPaths[:n_reads], paths.npz and ebcx.npz).
+    block_positions, when given, stands in for BLOCK_POSITIONS so that both
+    take the blocked count and the blocked pather."""
     import numpy as np
     from supernova_tpu_torch import convert
+    from supernova_tpu_torch.kmer import count as kcount
     from supernova_tpu_torch.pipeline.run import Pipeline
 
-    outs = {}
-    for dev in ("cuda", "cpu"):
+    outs, records = {}, {}
+    saved = kcount.BLOCK_POSITIONS
+    kcount.BLOCK_POSITIONS = block_positions or saved
+    try:
         with tempfile.TemporaryDirectory() as d:
-            table, bg, rp = Pipeline(d, device=dev).run(rs)
-        outs[dev] = (convert.table_to_numpy(table), bg, convert.readpaths_to_numpy(rp))
-    (tg, bgg, rg), (tc, bgc, rc) = outs["cuda"], outs["cpu"]
-    check(tg.n_valid == tc.n_valid, "small slice: n_valid differs")
+            for dev in ("cuda", "cpu"):
+                pl = Pipeline(f"{d}/{dev}", device=dev)
+                table, bg, rp = pl.run(rs)
+                records[dev] = pl.stage_records
+                npz = {name: dict(np.load(f"{d}/{dev}/{name}"))
+                       for name in ("paths.npz", "ebcx.npz")}
+                outs[dev] = (convert.table_to_numpy(table), bg, convert.readpaths_to_numpy(rp),
+                             npz, {k: pl.stats.get(k) for k in PATHS_STATS})
+    finally:
+        kcount.BLOCK_POSITIONS = saved
+    (tg, bgg, rg, zg, sg), (tc, bgc, rc, zc, sc) = outs["cuda"], outs["cpu"]
+    check(tg.n_valid == tc.n_valid, f"{tag} slice: n_valid differs")
     for f in ("count", "nbc", "left_mask", "right_mask"):
-        check(np.array_equal(getattr(tg, f), getattr(tc, f)), f"small slice: table {f}")
+        check(np.array_equal(getattr(tg, f), getattr(tc, f)), f"{tag} slice: table {f}")
     for i in range(3):
-        check(np.array_equal(tg.words[i], tc.words[i]), f"small slice: table word {i}")
+        check(np.array_equal(tg.words[i], tc.words[i]), f"{tag} slice: table word {i}")
     for f in ("inv", "from_v", "to_v", "is_circle", "kmer_words", "node_edge", "node_pos"):
-        check(np.array_equal(getattr(bgg, f), getattr(bgc, f)), f"small slice: graph {f}")
-    check(np.array_equal(bgg.edges.values, bgc.edges.values), "small slice: edge codes")
-    check(np.array_equal(bgg.edges.offsets, bgc.edges.offsets), "small slice: edge offsets")
-    check(bgg.n_vertices == bgc.n_vertices, "small slice: n_vertices")
+        check(np.array_equal(getattr(bgg, f), getattr(bgc, f)), f"{tag} slice: graph {f}")
+    check(np.array_equal(bgg.edges.values, bgc.edges.values), f"{tag} slice: edge codes")
+    check(np.array_equal(bgg.edges.offsets, bgc.edges.offsets), f"{tag} slice: edge offsets")
+    check(bgg.n_vertices == bgc.n_vertices, f"{tag} slice: n_vertices")
     n = rs.n_reads
     for f in rg._fields:
-        check(np.array_equal(getattr(rg, f)[:n], getattr(rc, f)[:n]), f"small slice: paths {f}")
-    print(f"[small] {n} reads: kmers {tg.n_valid}, edges {bgg.n_edges}: "
-          "CUDA == CPU (table, graph, paths)")
+        check(np.array_equal(getattr(rg, f)[:n], getattr(rc, f)[:n]), f"{tag} slice: paths {f}")
+    for name in zc:
+        check(zg[name].keys() == zc[name].keys(), f"{tag} slice: {name} arrays differ")
+        for k in zc[name]:
+            check(zg[name][k].dtype == zc[name][k].dtype
+                  and np.array_equal(zg[name][k], zc[name][k]), f"{tag} slice: {name} {k}")
+    check(sg == sc, f"{tag} slice: paths stats {sg} vs {sc}")
+    if block_positions:
+        for st in ("count", "paths"):
+            nblk = records["cuda"][st].get("blocks", 1)
+            check(nblk >= 2, f"{tag} slice: {st} took {nblk} block(s), not the blocked path")
+    blocks = (f", {records['cuda']['count']['blocks']} count / "
+              f"{records['cuda']['paths']['blocks']} paths blocks" if block_positions else "")
+    print(f"[{tag}] {n} reads, {int(rs.offsets[-1])} bases: kmers {tg.n_valid}, edges "
+          f"{bgg.n_edges}{blocks}, {sg}: CUDA == CPU (table, graph, paths, paths.npz, ebcx.npz)")
+
+
+# the paths stage's stats, in the reference's logging order
+PATHS_STATS = ("paths_rescued", "paths_extended", "placed_perc")
 
 
 def phase_slice(torch, rs, tag, min_blocks=None):
     """The slice through Pipeline(device="cuda") with the launch counters
-    reset just before and read just after; returns (launches, count
-    stage record)."""
+    reset just before and read just after; returns (launches, count stage
+    record, host table, BaseGraph)."""
     from supernova_tpu_torch.core import kmer_codec as kc
     from supernova_tpu_torch.ops import kernels
     from supernova_tpu_torch.pipeline.run import Pipeline
@@ -381,21 +538,29 @@ def phase_slice(torch, rs, tag, min_blocks=None):
         table, bg, rp = pl.run(rs)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
+        files = {name: os.path.getsize(f"{outdir}/{name}")
+                 for name in ("paths.npz", "ebcx.npz") if os.path.exists(f"{outdir}/{name}")}
     for name, rec in pl.stage_records.items():
         print(f"[{tag}] stage {name}: wall {rec['wall_s']:.3f} s, "
               f"peak device memory {rec['peak_gb']:.3f} GiB")
-    crec = pl.stage_records["count"]
+    crec, prec = pl.stage_records["count"], pl.stage_records["paths"]
     if min_blocks is not None:
         print(f"[{tag}] count: {crec.get('blocks')} blocks of {crec.get('block_rows')} raw "
               f"rows spilled; merged {crec.get('raw_rows')} raw rows in "
               f"{crec.get('partitions')} device merge(s); OOM retries {crec.get('oom_retries')}")
+        print(f"[{tag}] paths: {prec.get('blocks')} blocks at {prec.get('block_positions')} "
+              f"positions; OOM retries {prec.get('oom_retries')}")
         check(crec.get("blocks", 1) >= min_blocks,
               f"{crec.get('blocks', 1)} count blocks < {min_blocks}")
     kd, ne, placed = (pl.stats.get(k) for k in ("kmers_distinct", "n_edges", "placed_perc"))
     print(f"[{tag}] reads {rs.n_reads}, bases {int(rs.offsets[-1])}: kmers_distinct {kd}, "
           f"n_edges {ne}, placed_perc {placed:.3f}")
+    print(f"[{tag}] paths: rescued {pl.stats.get('paths_rescued')} reads in "
+          f"{prec['rescue_s']:.3f} s (host), extended {pl.stats.get('paths_extended')} in "
+          f"{prec['extend_s']:.3f} s (host); written {files} (bytes)")
     print(f"[{tag}] launches {launches}")
     check(placed >= 95.0, f"placed_perc {placed} < 95")
+    check(set(files) == {"paths.npz", "ebcx.npz"}, f"{tag}: paths.npz/ebcx.npz not written")
     n = int(table.n_valid)
     w = table.words
     head, tail = kc.W3(w.a[: n - 1], w.b[: n - 1], w.c[: n - 1]), kc.W3(w.a[1:n], w.b[1:n], w.c[1:n])
@@ -406,7 +571,7 @@ def phase_slice(torch, rs, tag, min_blocks=None):
         check(c > 0, f"kernel {name} was not launched by the main path")
     from supernova_tpu_torch import convert
 
-    return launches, crec, convert.table_to_numpy(table)
+    return launches, crec, convert.table_to_numpy(table), bg
 
 
 def same_table(want, got, label):
@@ -447,12 +612,14 @@ def block_peak_gib(torch, rs, max_positions, dev):
     from supernova_tpu_torch.kmer import count as kcount
 
     blocks = kcount.split_readset_blocks(rs, max_positions)
-    p = kcount.prepare_reads_packed(blocks[0], pad_to_positions=max(int(b.offsets[-1]) for b in blocks))
-    t = lambda a: torch.from_numpy(a).to(dev)
-    _, _, peak, _ = measured(torch, lambda: int(kcount.count_block_raw_packed(
-        t(p["codes_packed"]), t(p["glen"]), t(p["read_bc"]), p["n_reads"], p["uniform_rl"],
-        p["nbp"]).n_valid))
-    return peak
+
+    def count():
+        p = kcount.prepare_reads(blocks[0], dev, pad_to_positions=max(int(b.offsets[-1]) for b in blocks),
+                                 pad_to_reads=max(b.n_reads for b in blocks))
+        return int(kcount.count_block_raw(p["codes_ext"], p["pos_read"], p["glen_pos"], p["bc_pos"],
+                                          p["uniform_rl"]).n_valid)
+
+    return measured(torch, count)[2]
 
 
 def phase_genome_count(torch, rs, want, raw_rows, dev):
@@ -508,6 +675,189 @@ def phase_genome_count(torch, rs, want, raw_rows, dev):
     for name, c in launches.items():
         check(c > 0, f"genome count (c): kernel {name} was not launched")
     print(f"[genome count] (c) OOM retries {info['oom_retries']}")
+
+
+def phase_block_prep(torch, rs, dev):
+    """A uniform block counted from the port's inputs (prepare_reads: 2-bit
+    codes and per-read lengths, good lengths and barcodes, expanded on the
+    card by repeat_interleave and gathers) and from the packed inputs the
+    count used for uniform reads until it took prepare_reads for every
+    block (prepare_reads_packed, expanded by a reshape of the read grid; a
+    yardstick kept here, used nowhere in the port), alternated (packed,
+    port, port, packed).  Each wall runs from the host ReadSet to the
+    block's spill columns on the host; the raw tables must be identical."""
+    import numpy as np
+
+    from supernova_tpu_torch.core.kmer_codec import K
+    from supernova_tpu_torch.kmer import count as kcount
+
+    blocks = kcount.split_readset_blocks(rs, kcount.BLOCK_POSITIONS)
+    pad_pos = max(int(b.offsets[-1]) for b in blocks)
+    pad_rd = max(b.n_reads for b in blocks)
+    t = lambda a: torch.from_numpy(a).to(dev)
+
+    def packed():
+        p = kcount.prepare_reads_packed(blocks[0], pad_to_positions=pad_pos)
+        rl, nbp = p["uniform_rl"], p["nbp"]
+        codes_ext = kcount._unpack_codes_dev(t(p["codes_packed"]), nbp, max(K, 128))
+        pos_read = (torch.arange(nbp, device=dev) // rl).clamp(max=p["n_reads"])
+        grid = lambda a: t(a)[:, None].expand(nbp // rl, rl).reshape(-1)
+        return kcount.count_block_raw(codes_ext, pos_read, grid(p["glen"]), grid(p["read_bc"]), rl)
+
+    def port():
+        p = kcount.prepare_reads(blocks[0], dev, pad_to_positions=pad_pos, pad_to_reads=pad_rd)
+        return kcount.count_block_raw(p["codes_ext"], p["pos_read"], p["glen_pos"], p["bc_pos"],
+                                      p["uniform_rl"])
+
+    walls, peaks, cols = {"packed": [], "port": []}, {}, {}
+    for label, fn in (("packed", packed), ("port", port), ("port", port), ("packed", packed)):
+        out, wall, peaks[label], _ = measured(torch, lambda: kcount.raw_block_columns(fn()))
+        walls[label].append(wall)
+        cols.setdefault(label, out)
+    nv = len(cols["port"][0])
+    check(len(cols["packed"][0]) == nv, f"block prep: {len(cols['packed'][0])} raw rows != {nv}")
+    for i, (x, y) in enumerate(zip(cols["packed"], cols["port"])):
+        check(x.dtype == y.dtype and np.array_equal(x, y), f"block prep: raw column {i} differs")
+    print(f"[block prep] the uniform genome's first block ({blocks[0].n_reads} reads, "
+          f"{int(blocks[0].offsets[-1])} bases, {nv} raw rows) to the host's spill columns: "
+          f"prepare_reads {walls['port'][0]:.3f} / {walls['port'][1]:.3f} s, "
+          f"{peaks['port']:.3f} GiB; packed inputs (yardstick) {walls['packed'][0]:.3f} / "
+          f"{walls['packed'][1]:.3f} s, {peaks['packed']:.3f} GiB; raw tables identical")
+
+
+def phase_mixed_count(torch, rs, want, dev):
+    """The mixed genome counted again in blocks of 48M positions: the
+    table equals the Pipeline's (`want`) bit for bit."""
+    from supernova_tpu_torch import convert
+    from supernova_tpu_torch.kmer import count as kcount
+
+    info = {}
+    max_pos = kcount.BLOCK_POSITIONS // 2
+    table, wall, peak, launches = measured(torch, lambda: kcount.count_readset_blocked(
+        rs, dev, max_positions=max_pos, info=info))
+    same_table(want, convert.table_to_numpy(table), "mixed count")
+    print(f"[mixed count] {info['blocks']} blocks at {max_pos} positions, {info['raw_rows']} raw "
+          f"rows in {info['partitions']} partition(s); wall {wall:.3f} s, device peak "
+          f"{peak:.3f} GiB, host peak RSS {info['peak_rss_gb']:.2f} GB; launches {launches}; "
+          "table identical to the Pipeline's")
+    check(info["blocks"] >= 2, f"mixed count: {info['blocks']} blocks < 2")
+
+
+def paths_block_peak_gib(torch, bg, rs, max_positions, dev):
+    """Device peak of pathing the first block of the mixed-length rs cut at
+    max_positions, padded as the blocked pather pads it (its inputs' copies
+    to the card included; the graph's device arrays are already there)."""
+    from supernova_tpu_torch.align import pather
+    from supernova_tpu_torch.kmer import count as kcount
+
+    blocks = kcount.split_readset_blocks(rs, max_positions)
+    pad_pos = max(int(b.offsets[-1]) for b in blocks)
+    pad_rd = max(b.n_reads for b in blocks)
+    _, wall, peak, _ = measured(torch, lambda: int(pather._path_full(
+        bg, kcount.prepare_reads(blocks[0], dev, pad_to_positions=pad_pos, pad_to_reads=pad_rd),
+        dev, pather.MAX_PATH).path_len.sum()))
+    return peak, wall
+
+
+def same_paths(want, got, label):
+    """Two ReadPaths on the card equal over want's rows."""
+    n = got.edges.shape[0]
+    for f, x, y in zip(want._fields, want, got):
+        check(x[:n].shape == y.shape and bool((x[:n] == y).all()), f"{label}: paths {f} differ")
+
+
+def phase_mixed_paths(torch, bg, rs, dev):
+    """The blocked general pather at 96M-position blocks, then again beside
+    a ballast that leaves free memory between one 96M- and one 48M-position
+    block's paths peak: exactly one OOM retry, and the same ReadPaths."""
+    import gc
+
+    from supernova_tpu_torch.align import pather
+    from supernova_tpu_torch.kmer import count as kcount
+
+    p96, w96 = paths_block_peak_gib(torch, bg, rs, kcount.BLOCK_POSITIONS, dev)
+    p48, w48 = paths_block_peak_gib(torch, bg, rs, kcount.BLOCK_POSITIONS // 2, dev)
+    info = {}
+    want, wall, peak, _ = measured(torch, lambda: pather.path_readset(bg, rs, dev, info=info))
+    check(info["oom_retries"] == 0, f"mixed paths: {info['oom_retries']} OOM retries unballasted")
+    print(f"[mixed paths] {info['blocks']} blocks at {info['block_positions']} positions: wall "
+          f"{wall:.3f} s, device peak {peak:.3f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    target = int((p96 + p48) / 2 * 2**30)
+    check(free > target, f"{free} bytes free < {target}")
+    ballast = torch.empty(free - target, dtype=torch.uint8, device=dev)
+    print(f"[mixed paths] paths peak of one block: {p96:.3f} GiB ({w96:.3f} s) at "
+          f"{kcount.BLOCK_POSITIONS} positions, {p48:.3f} GiB ({w48:.3f} s) at "
+          f"{kcount.BLOCK_POSITIONS // 2}; a {ballast.numel() / 2**30:.3f} GiB ballast leaves "
+          f"{torch.cuda.mem_get_info()[0] / 2**30:.3f} GiB free")
+    info = {}
+    try:
+        rp, wall, peak, launches = measured(torch, lambda: pather.path_readset(
+            bg, rs, dev, info=info))
+    finally:
+        del ballast
+    check(info["oom_retries"] == 1, f"mixed paths: {info['oom_retries']} OOM retries, not 1")
+    same_paths(want, rp, "mixed paths (OOM-halved)")
+    print(f"[mixed paths] beside the ballast: {info['oom_retries']} OOM retry, then "
+          f"{info['blocks']} blocks at {info['block_positions']} positions; wall {wall:.3f} s, "
+          f"device peak {peak:.3f} GiB; launches {launches}; ReadPaths identical to the "
+          "96M-position blocks'")
+
+
+def phase_general_vs_fused(torch, bg, rs, dev):
+    """The general pather (with and without the tail cut) against the fused
+    one on the first block of the uniform genome, at full width (walls from
+    the inputs' host arrays: packed codes, prepare_reads' tensors)."""
+    from supernova_tpu_torch.align import pather
+    from supernova_tpu_torch.kmer import count as kcount
+
+    block = kcount.split_readset_blocks(rs, kcount.BLOCK_POSITIONS)[0]
+    pk = kcount.prepare_reads_packed(block)
+    fused, wf, pf, _ = measured(torch, lambda: pather._path_packed(
+        bg, pk, dev, pather.MAX_PATH, kcount._round_up(block.n_reads + 1, 1024)))
+    inp = kcount.prepare_reads(block, dev)
+    for rl in (inp["uniform_rl"], None):
+        general, wg, pg, _ = measured(torch, lambda: pather._path_full(
+            bg, dict(inp, uniform_rl=rl), dev, pather.MAX_PATH))
+        same_paths(fused, general, f"general pather (uniform_rl={rl})")
+        print(f"[mixed paths] general pather (uniform_rl={rl}) == fused on the uniform genome's "
+              f"first block ({block.n_reads} reads, {int(block.offsets[-1])} bases): general "
+              f"{wg:.3f} s, {pg:.3f} GiB; fused {wf:.3f} s, {pf:.3f} GiB")
+        del general
+
+
+def phase_graph_chunks(torch, table, dev):
+    """build_links at the card's budget (one join at this size) and with
+    the successor resolve in >= 4 chunks: the same links; each run's peak
+    bytes a joined row within LINK_BYTES_PER_ROW (the genome's table, back
+    on the card)."""
+    from supernova_tpu_torch import convert
+    from supernova_tpu_torch.dbg import build as dbuild
+
+    t = convert.table_from_numpy(table, dev)
+    m = t.words.a.shape[0]
+    budget = dbuild.link_chunk_rows(dev, m)
+    whole = None
+    for label, chunk in (("the card's budget", budget), (">= 4 chunks", 2 * m // 4 + 1)):
+        torch.cuda.empty_cache()
+        links, wall, peak, launches = measured(torch, lambda: dbuild.build_links(t, chunk=chunk))
+        nchunks = -(-2 * m // chunk)
+        per_row = peak * 2**30 / (m + chunk)
+        if whole is None:
+            whole = links
+        for f, x, y in zip(whole._fields, whole, links):
+            check(torch.equal(x, y), f"graph chunks ({label}): links {f} differ")
+        print(f"[graph chunks] {label}: {nchunks} chunk(s) of {chunk} of the {2 * m} oriented "
+              f"nodes, {m} table rows: {wall:.3f} s, device peak {peak:.3f} GiB = {per_row:.1f} B "
+              f"a joined row (LINK_BYTES_PER_ROW {dbuild.LINK_BYTES_PER_ROW}), K4 "
+              f"{launches['sort']} launches; links identical")
+        check(per_row <= dbuild.LINK_BYTES_PER_ROW,
+              f"graph chunks ({label}): {per_row:.1f} B a joined row > LINK_BYTES_PER_ROW")
+        del links
+    check(budget == 2 * m, f"graph chunks: the card's budget cut {2 * m} nodes into chunks")
+    check(nchunks >= 4, f"graph chunks: {nchunks} chunks < 4")
 
 
 # the reference's 30 Mb run (artifacts/val30mb_r5/run.log): 15 blocks of
@@ -718,7 +1068,10 @@ def main() -> int:
           f"simulated in {time.perf_counter() - t0:.1f} s")
     kres = phase_kernels(torch, rs_full, dev)
     torch.cuda.empty_cache()
-    phase_small_slice(torch, datasets.simulate(datasets.SMALL, datasets.SMALL_SEED))
+    rs_small = datasets.simulate(datasets.SMALL, datasets.SMALL_SEED)
+    phase_small_slice(torch, rs_small)
+    phase_small_slice(torch, datasets.r1_trimmed(rs_small), "small mixed", block_positions=300_000)
+    del rs_small
     phase_slice(torch, rs_full, "full")
     del rs_full
     torch.cuda.empty_cache()
@@ -727,10 +1080,26 @@ def main() -> int:
     rs_genome = datasets.simulate(datasets.GENOME, datasets.GENOME_SEED)
     print(f"[data] genome: {rs_genome.n_reads} reads, {int(rs_genome.offsets[-1])} bases "
           f"simulated in {time.perf_counter() - t0:.1f} s")
-    launches, crec, table = phase_slice(torch, rs_genome, "genome", min_blocks=2)
+    launches, crec, table, bg = phase_slice(torch, rs_genome, "genome", min_blocks=2)
     torch.cuda.empty_cache()
     phase_genome_count(torch, rs_genome, table, crec["raw_rows"], dev)
-    del rs_genome
+    phase_block_prep(torch, rs_genome, dev)
+    phase_general_vs_fused(torch, bg, rs_genome, dev)
+    rs_mixed = datasets.r1_trimmed(rs_genome)
+    del rs_genome, bg
+    torch.cuda.empty_cache()
+    print(f"[data] mixed genome (every R1 cut by {datasets.R1_SKIP} bases): {rs_mixed.n_reads} "
+          f"reads, {int(rs_mixed.offsets[-1])} bases")
+    phase_kernels_mixed(torch, rs_mixed, dev, kres)
+    torch.cuda.empty_cache()
+    launches_mixed, _, table_mixed, bg_mixed = phase_slice(torch, rs_mixed, "mixed", min_blocks=2)
+    torch.cuda.empty_cache()
+    phase_mixed_count(torch, rs_mixed, table_mixed, dev)
+    phase_mixed_paths(torch, bg_mixed, rs_mixed, dev)
+    del rs_mixed, bg_mixed, table_mixed
+    torch.cuda.empty_cache()
+    phase_graph_chunks(torch, table, dev)
+    torch.cuda.empty_cache()
     phase_scale_merge(torch, dev, **SCALE)
     phase_merge(torch, crec["raw_rows"])
     torch.cuda.empty_cache()
@@ -744,8 +1113,8 @@ def main() -> int:
         dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
              launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
-             library_ms=r.get("library_ms"), library_shape=r.get("library_shape"),
-             shape=r["shape"], **{k: r[k] for k in EXTRA_KEYS if k in r})
+             library_ms=r.get("library_ms"), mixed_launches=launches_mixed[name],
+             **{k: v for k, v in r.items() if k not in COMMON_KEYS})
         for name, r in kres.items()
     ]}))
     print(f"[time] chip_smoke {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,5 @@
-"""Read-to-graph pathing on torch tensors: port of the fused uniform-read
-path of supernova_tpu/align/pather.py.
+"""Read-to-graph pathing on torch tensors: port of
+supernova_tpu/align/pather.py.
 
 Every read becomes (offset, [edge ids]) on the unipath graph.  One
 sort-merge join looks up every read kmer in the graph's kmer dictionary;
@@ -8,14 +8,17 @@ offsets agree within JITTER (captured-gap rule); consecutive path slots
 must be graph-adjacent at the right junction position, and the best
 supported valid run of slots is kept (algorithmTwo's seed-chain checks).
 
+Uniform-length reads take the fused pather (`path_reads_fused_impl`, from
+2-bit packed codes); mixed-length reads (10x R1 is 23 bases shorter than
+R2) take the general one (`path_reads_impl`, per-position inputs of
+kcount.prepare_reads).  Both place their hits with `_compact_and_place`.
 The dictionary values reach the query rows by the cummax + gather variant
 of the reference (`join_once`, else-branch), which the reference's tests
 hold equal to its associative-scan variant.  Left out as TPU-compile
 workarounds: SCAN_PROPAGATE_MAX_ROWS, JOIN_ROWS (`_join_block_positions`),
 table slicing and _is_compile_kill.  Readsets above BLOCK_POSITIONS bases
 are pathed block by block (`path_readset_blocked`, the reference's
-_path_readset_blocked).  Mixed-length readsets (the general pather) are
-not ported yet.
+_path_readset_blocked), halving the block size on a device OOM.
 """
 from __future__ import annotations
 
@@ -88,17 +91,18 @@ def _select_best_run(paths, entry_p, entry_e, slot_hits, raw_len, n_slots, overf
     )
 
 
-def _compact_and_place(hit, edge, epos, cols: int, rp: int, max_path: int,
+def _compact_and_place(hit, edge, epos, locate, rp: int, max_path: int,
                        from_v, to_v, edge_kmers) -> ReadPaths:
     """Hit rows (given in query order) -> slots per read -> best run.
 
-    The reference sorts hit rows by (miss, query position); here they
-    already are in query order, so a boolean mask compacts them."""
+    locate(cq) gives the read and the position in the read of the hit rows
+    cq.  The reference sorts hit rows by (miss, query position) (the
+    general pather: a stable sort by miss); here they already are in query
+    order, so a boolean mask compacts them."""
     dev = hit.device
     cq = torch.nonzero(hit).squeeze(1)  # query positions of hits, ascending
     ce, cp = edge[cq], epos[cq]
-    cread = cq // cols
-    cpir = cq % cols
+    cread, cpir = locate(cq)
     cdelta = cp - cpir
 
     # captured-gap rejoin: a hit opens a new slot unless the previous hit
@@ -167,7 +171,44 @@ def path_reads_fused_impl(kmer_words: W3, node_edge, node_pos, from_v, to_v, edg
     invalid = pirq + K > rlen_q  # padding reads
     hit, edge, epos = _join(kmer_words, node_edge, node_pos, W3(a_, b_, c_), flipped, invalid)
     return _compact_and_place(
-        hit, edge, epos, cols, rp, max_path, from_v, to_v, edge_kmers
+        hit, edge, epos, lambda cq: (cq // cols, cq % cols), rp, max_path,
+        from_v, to_v, edge_kmers,
+    )
+
+
+def path_reads_impl(kmer_words: W3, node_edge, node_pos, from_v, to_v, edge_kmers,
+                    codes_ext, read_offsets, pos_read, rlen_pos, max_path: int = MAX_PATH,
+                    uniform_rl: int | None = None) -> ReadPaths:
+    """The general pather (per-position inputs of kcount.prepare_reads, any
+    read lengths): word extraction (K1 on the card), one merge-join against
+    the dictionary (K4), then slotting and seed-chain validation at hit
+    scale.  uniform_rl cuts the last K-1 positions of each read block first
+    (the reference's tail-cut branch).  Output rows: rp =
+    len(read_offsets) - 1.
+
+    The position in the read is p - read_offsets[pos_read], one gather: it
+    equals the reference's cummax from each read's first position because
+    pos_read is non-decreasing and read_offsets[r] is read r's first
+    position (empty reads and the padding read n_reads included)."""
+    nb = pos_read.shape[0]
+    rp = read_offsets.shape[0] - 1
+    canon, flipped = kc.canonicalize(kc.sliding_words(codes_ext, nb))
+    if uniform_rl is not None:
+        cols = uniform_rl - K + 1
+        a_, b_, c_, flipped, pos_read, rlen_pos = kcount.uniform_tail_cut(
+            uniform_rl, canon.a, canon.b, canon.c, flipped, pos_read, rlen_pos
+        )
+        canon = W3(a_, b_, c_)
+        pir = torch.arange(a_.shape[0], device=a_.device) % cols
+    else:
+        pir = torch.arange(nb, device=pos_read.device) - torch.index_select(
+            read_offsets, 0, pos_read)
+    invalid = pir + K > rlen_pos  # beyond the read (padding reads: length 0)
+    hit, edge, epos = _join(kmer_words, node_edge, node_pos, canon, flipped, invalid)
+    hit &= edge >= 0
+    return _compact_and_place(
+        hit, edge, epos, lambda cq: (pos_read[cq].long(), pir[cq]), rp, max_path,
+        from_v, to_v, edge_kmers,
     )
 
 
@@ -195,36 +236,58 @@ def _path_packed(bg, pk, device, max_path: int, rp_pad: int) -> ReadPaths:
     )
 
 
+def _path_full(bg, inp, device, max_path: int) -> ReadPaths:
+    da = bg.device_arrays(device)
+    return path_reads_impl(
+        da["words"], da["node_edge"], da["node_pos"], da["from_v"], da["to_v"],
+        da["edge_kmers"], inp["codes_ext"], inp["read_offsets"], inp["pos_read"],
+        inp["rlen_pos"], max_path, inp["uniform_rl"],
+    )
+
+
 def path_readset_blocked(bg, rs, device, max_path: int = MAX_PATH,
-                         max_positions: int | None = None) -> ReadPaths:
-    """Path a uniform-length readset block by block (the count's barcode-
-    boundary blocks, BLOCK_POSITIONS bases when max_positions is None):
-    every block is padded to the largest block's bases and to
-    round_up(largest read count + 1, 1024) rows, and its first n_reads rows
-    are kept.  Reads are independent, so the concatenation equals the
-    single-block result over [:n_reads]; the output has n_reads rows."""
+                         max_positions: int | None = None,
+                         info: dict | None = None) -> ReadPaths:
+    """Path a readset block by block (the count's barcode-boundary blocks,
+    BLOCK_POSITIONS bases when max_positions is None): every block is
+    padded to the largest block's bases and reads, and its first n_reads
+    rows are kept.  Reads are independent, so the concatenation equals the
+    single-block result over [:n_reads]; the output has n_reads rows.
+    Uniform-length readsets (decided on the parent, as the reference does)
+    send packed codes to the fused pather, mixed-length ones the inputs of
+    prepare_reads to the general pather.  info receives blocks and
+    block_positions."""
     device = torch.device(device)
-    blocks = kcount.split_readset_blocks(rs, max_positions or kcount.BLOCK_POSITIONS)
+    max_positions = max_positions or kcount.BLOCK_POSITIONS
+    blocks = kcount.split_readset_blocks(rs, max_positions)
     pad_pos = max(int(b.offsets[-1]) for b in blocks)
-    rp_pad = kcount._round_up(max(b.n_reads for b in blocks) + 1, 1024)
+    pad_rd = max(b.n_reads for b in blocks)
+    packed = kcount._uniform_rl(rs) is not None
+    if info is not None:
+        info.update(blocks=len(blocks), block_positions=max_positions)
     parts = []
     for b in blocks:
-        rp = _path_packed(bg, kcount.prepare_reads_packed(b, pad_to_positions=pad_pos),
-                          device, max_path, rp_pad)
+        if packed:
+            rp = _path_packed(bg, kcount.prepare_reads_packed(b, pad_to_positions=pad_pos),
+                              device, max_path, kcount._round_up(pad_rd + 1, 1024))
+        else:
+            rp = _path_full(bg, kcount.prepare_reads(b, device, pad_to_positions=pad_pos,
+                                                     pad_to_reads=pad_rd), device, max_path)
         parts.append([x[: b.n_reads] for x in rp])
     return ReadPaths(*(torch.cat([p[i] for p in parts]) for i in range(len(ReadPaths._fields))))
 
 
-def path_readset(bg, rs, device, max_path: int = MAX_PATH) -> ReadPaths:
+def path_readset(bg, rs, device, max_path: int = MAX_PATH, info: dict | None = None) -> ReadPaths:
     """BaseGraph + ReadSet -> ReadPaths on `device`: rows padded to
     round_up(n_reads + 1, 1024) for one block, n_reads rows when the
-    readset spans several (as in the reference)."""
-    if kcount._uniform_rl(rs) is None:
-        raise NotImplementedError(
-            "mixed-length readsets need the general pather (path_reads_impl), "
-            "ROADMAP item 'general pather'"
-        )
+    readset spans several (as in the reference).  Above BLOCK_POSITIONS
+    bases the blocked pather runs under kcount.halving_retry (info receives
+    blocks, block_positions and oom_retries)."""
+    device = torch.device(device)
     if int(rs.offsets[-1]) > kcount.BLOCK_POSITIONS:
-        return path_readset_blocked(bg, rs, device, max_path)
-    return _path_packed(bg, kcount.prepare_reads_packed(rs), torch.device(device), max_path,
-                        kcount._round_up(rs.n_reads + 1, 1024))
+        return kcount.halving_retry("paths", device, info, lambda max_pos: path_readset_blocked(
+            bg, rs, device, max_path, max_positions=max_pos, info=info))
+    pk = kcount.prepare_reads_packed(rs)
+    if pk is not None:
+        return _path_packed(bg, pk, device, max_path, kcount._round_up(rs.n_reads + 1, 1024))
+    return _path_full(bg, kcount.prepare_reads(rs, device), device, max_path)

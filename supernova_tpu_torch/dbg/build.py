@@ -8,12 +8,14 @@ maximal chains are ranked by pointer doubling.  Edge sequences, vertices
 (47-mer junctions) and the rc involution are then materialized with sorts,
 cumsums and scatters.
 
-Left out, as TPU workarounds: the e_pad/flat_pad compile buckets (arrays
-here have their true sizes), LINK_BLOCK_NODES blocking of the successor
-resolve (one count block's table, at most ~62M rows, resolves in one join
-well inside an 80 GB card), and the host ranking twin that existed because
-of a TPU worker crash.  `trim_table` keeps the reference's geometric-ladder
-row count: it fixes the byte layout of kmers.npz and graph.npz.
+The successor resolve joins the table with all 2M oriented nodes at once
+when the card's free memory holds that join, else in chunks of nodes (the
+reference's LINK_BLOCK_NODES loop), sized by link_chunk_rows: the table
+comes from the blocked count and can hold any genome's kmers.  Left out, as TPU workarounds: the
+e_pad/flat_pad compile buckets (arrays here have their true sizes) and the
+host ranking twin that existed because of a TPU worker crash.
+`trim_table` keeps the reference's geometric-ladder row count: it fixes
+the byte layout of kmers.npz and graph.npz.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from ..core import kmer_codec as kc
 from ..core.kmer_codec import K, W3
+from ..kmer import count as kcount
 from ..kmer.count import KmerTable, rev4
 from ..ops import segments as seg
 
@@ -105,11 +108,38 @@ def _rank_links(nxt) -> Links:
     return Links(nxt, prv, ptr, dist)
 
 
-def build_links(table: KmerTable) -> Links:
-    """Successor/predecessor maps + cycle-broken list ranking."""
+# peak device bytes per joined row (table + chunk of oriented nodes) of
+# build_links, the ranking after the joins included: 178.8 measured on an
+# H100 80GB HBM3 (700 W) by chip_smoke.py's graph-chunks phase for one join
+# of all nodes (the costliest per row; 165.8 for two chunks), rounded up
+LINK_BYTES_PER_ROW = 192
+
+
+def link_chunk_rows(device: torch.device, m: int) -> int:
+    """Oriented nodes a successor-resolve join takes beside the m table
+    rows: all 2m when table + nodes fit the card's free memory at
+    LINK_BYTES_PER_ROW, else what fits (at least 2^20).  The CPU (the
+    tests' device) sets no limit."""
+    n = max(2 * m, 1)
+    if device.type != "cuda":
+        return n
+    return min(n, max(1 << 20, kcount.free_device_bytes(device) // LINK_BYTES_PER_ROW - m))
+
+
+def build_links(table: KmerTable, chunk: int | None = None) -> Links:
+    """Successor/predecessor maps + cycle-broken list ranking.  The
+    successors of the 2m oriented nodes resolve `chunk` nodes at a time
+    (link_chunk_rows by default), each chunk one join of the table plus the
+    chunk."""
     m = table.words.a.shape[0]
-    u = torch.arange(2 * m, device=table.words.a.device)
-    return _rank_links(_links_block(table, _indeg8(table), u))
+    dev = table.words.a.device
+    chunk = chunk or link_chunk_rows(dev, m)
+    indeg8 = _indeg8(table)
+    nxt = torch.cat([
+        _links_block(table, indeg8, torch.arange(s, min(s + chunk, 2 * m), device=dev))
+        for s in range(0, 2 * m, chunk)
+    ])
+    return _rank_links(nxt)
 
 
 def _edge_count(links: Links, n_valid_rows: int) -> int:

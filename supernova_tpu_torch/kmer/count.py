@@ -24,9 +24,11 @@ are merged + filtered on the card: in one merge when they fit the card's
 merge budget, else in kmer-range partitions, each merged on the card and
 pulled back, then finalized on the card (trim + chunked adjacency
 recompute).  `count_readset` halves the block size and retries when the
-card runs out of memory.  Bit-identical to the single-block count.  Left
-out (raises NotImplementedError): blocked counting of mixed-length
-readsets.
+card runs out of memory.  Bit-identical to the single-block count.  Each
+block goes to the card as 2-bit packed codes and per-read attributes
+(`prepare_reads`); a uniform-length block cuts its reads' last K-1
+positions before the sort, a mixed-length one (10x R1 is 23 bases shorter
+than R2) keeps every position as a sort row.
 """
 from __future__ import annotations
 
@@ -59,7 +61,8 @@ READ_BUCKET = 1024  # read-count padding
 # (supernova_tpu/kmer/count.py BLOCK_POSITIONS); larger readsets go through
 # the blocked count.  The output does not depend on the block size.
 BLOCK_POSITIONS = 96_000_000
-# count_readset halves the block size on a device OOM down to this
+# halving_retry (the count and the pather) halves the block size on a
+# device OOM down to this
 MIN_BLOCK_POSITIONS = 24_000_000
 # peak device bytes per raw row of merge_raw_blocks, its inputs included,
 # when every row is a distinct kmer (its worst case): 178.7 measured on an
@@ -172,18 +175,26 @@ def reduce_occurrences(canon: W3, bc, lm, rm, valid, min_freq: int = MIN_FREQ,
     return _reduce_packed(canon, pack_occurrence_attrs(bc, lm, rm, valid), min_freq, min_bc)
 
 
-def count_kmers(codes_ext, pos_read, glen_pos, bc_pos, min_freq: int = MIN_FREQ,
-                min_bc: int = MIN_BC, uniform_rl: int | None = None) -> KmerTable:
-    """Count + filter canonical 48-mers over all reads of one block.
+def occurrence_rows(codes_ext, pos_read, glen_pos, bc_pos, uniform_rl: int | None = None):
+    """The sort rows of one block: (canonical words, packed attributes) of
+    every position, invalid rows holding the sentinel.
 
     uniform_rl: every read (host padding included) is laid out in blocks of
     this length, so the last K-1 positions of each block are cut before the
-    sort (~30% of the rows at rl=150)."""
+    sort (~30% of the rows at rl=150).  Mixed-length reads keep every
+    position as a row."""
     canon, bc, lm, rm, valid = extract_occurrences(codes_ext, pos_read, glen_pos, bc_pos)
     pk = pack_occurrence_attrs(bc, lm, rm, valid)
     if uniform_rl is not None:
         a_, b_, c_, pk = uniform_tail_cut(uniform_rl, canon.a, canon.b, canon.c, pk)
         canon = W3(a_, b_, c_).where(((pk >> 1) & 1) == 1, kc.SENTINEL)
+    return canon, pk
+
+
+def count_kmers(codes_ext, pos_read, glen_pos, bc_pos, min_freq: int = MIN_FREQ,
+                min_bc: int = MIN_BC, uniform_rl: int | None = None) -> KmerTable:
+    """Count + filter canonical 48-mers over all reads of one block."""
+    canon, pk = occurrence_rows(codes_ext, pos_read, glen_pos, bc_pos, uniform_rl)
     return _reduce_packed(canon, pk, min_freq, min_bc)
 
 
@@ -232,9 +243,11 @@ def recompute_adjacencies(table: KmerTable, chunk: int | None = None) -> KmerTab
 
 
 # ----------------------------------------------------------------- host prep
-# good_lengths_np / prepare_reads / prepare_reads_packed are host numpy in
-# the reference too, but its module imports jax, so they are copied here
-# (tests/test_torch_count.py holds each copy equal to the original).
+# good_lengths_np / prepare_reads_packed are host numpy in the reference
+# too, but its module imports jax, so they are copied here; prepare_reads
+# expands on the device what the reference's expands on the host
+# (tests/test_torch_count.py and test_torch_mixed.py hold each equal to
+# the original).
 
 def good_lengths_np(quals: np.ndarray, offsets: np.ndarray) -> np.ndarray:
     """Host qual-trim rule: per read, the largest prefix whose last K bases
@@ -278,39 +291,46 @@ def _uniform_rl(rs) -> int | None:
     return None
 
 
-def prepare_reads(rs, device) -> dict:
-    """Host packing of a ReadSet into per-position tensors on `device`.
+def prepare_reads(rs, device, pad_to_positions: int | None = None,
+                  pad_to_reads: int | None = None) -> dict:
+    """A ReadSet as per-position tensors on `device`: the reference's
+    prepare_reads, same values and shapes.
 
-    Sizes are rounded up as in the reference (padding positions belong to a
-    fake empty read); with uniform read length the base padding is a
-    multiple of rl*128 and the dict carries `uniform_rl`."""
+    nbp = round_up(max(nb, 1, pad_to_positions), bucket) positions, the
+    bucket rl*128 for uniform read length rl (the dict then carries
+    `uniform_rl`) and BASE_BUCKET otherwise; rp = round_up(max(n_reads,
+    pad_to_reads) + 1, READ_BUCKET) reads.  Padding positions belong to a
+    fake empty read n_reads.  The pad_to_* arguments give sibling blocks one
+    shape.  The host sends 2-bit packed codes and per-READ lengths, good
+    lengths and barcodes; the per-position arrays are expanded on the
+    device (~16x fewer bytes over the bus than expanded arrays)."""
+    device = torch.device(device)
     nb = int(rs.offsets[-1])
     n_reads = rs.n_reads
     uniform_rl = _uniform_rl(rs)
     base_bucket = BASE_BUCKET if uniform_rl is None else uniform_rl * 128
-    nbp = _round_up(max(nb, 1), base_bucket)
-    rp = _round_up(n_reads + 1, READ_BUCKET)
+    nbp = _round_up(max(nb, 1, pad_to_positions or 1), base_bucket)
+    rp = _round_up(max(n_reads, pad_to_reads or 0) + 1, READ_BUCKET)
 
-    codes_ext = np.zeros(nbp + max(K, 128), dtype=np.int32)
-    codes_ext[:nb] = rs.codes
-    lens = np.diff(rs.offsets).astype(np.int64)
-    pos_read = np.full(nbp, n_reads, dtype=np.int32)
-    pos_read[:nb] = np.repeat(np.arange(n_reads, dtype=np.int32), lens)
+    codes = np.zeros(nbp, np.uint8)
+    codes[:nb] = rs.codes
     offsets = np.full(rp + 1, nb, dtype=np.int32)
     offsets[: n_reads + 1] = rs.offsets
     read_bc = np.full(rp, BC_IGNORED, dtype=np.int32)
     if rs.barcoded:
         read_bc[:n_reads] = np.where(rs.bc > 0, rs.bc, BC_IGNORED)
-    glen_pos = np.zeros(nbp, dtype=np.int32)
-    glen_pos[:nb] = np.repeat(good_lengths_np(rs.quals, rs.offsets), lens)
-    bc_pos = np.full(nbp, BC_IGNORED, dtype=np.int32)
-    bc_pos[:nb] = np.repeat(read_bc[:n_reads], lens)
-    rlen_pos = np.zeros(nbp, dtype=np.int32)
-    rlen_pos[:nb] = np.repeat(lens.astype(np.int32), lens)
+    # per read, the fake read n_reads last: positions, length, good length
+    reps = np.append(np.diff(rs.offsets), nbp - nb).astype(np.int64)
+    rlen = np.append(reps[:n_reads], 0).astype(np.int32)
+    glen = np.append(good_lengths_np(rs.quals, rs.offsets), 0).astype(np.int32)
     t = lambda a: torch.from_numpy(a).to(device)
+    pos_read = torch.repeat_interleave(
+        torch.arange(n_reads + 1, dtype=torch.int32, device=device), t(reps), output_size=nbp)
+    per_pos = lambda a: torch.index_select(t(a), 0, pos_read)
     return dict(
-        codes_ext=t(codes_ext), read_offsets=t(offsets), pos_read=t(pos_read),
-        glen_pos=t(glen_pos), bc_pos=t(bc_pos), rlen_pos=t(rlen_pos),
+        codes_ext=_unpack_codes_dev(t(pack_codes(codes)), nbp, max(K, 128)),
+        read_offsets=t(offsets), pos_read=pos_read, glen_pos=per_pos(glen),
+        bc_pos=per_pos(read_bc[: n_reads + 1]), rlen_pos=per_pos(rlen),
         read_bc=t(read_bc), uniform_rl=uniform_rl,
     )
 
@@ -387,23 +407,13 @@ def _reduce_occurrences_raw(canon: W3, packed) -> RawBlockTable:
     return RawBlockTable(W3(wa, wb, wc), c2, st2, n_valid)
 
 
-def count_block_raw_packed(codes_packed, glen_r, bc_r, n_reads: int,
-                           uniform_rl: int, nbp: int) -> RawBlockTable:
-    """One block of the blocked count from compact inputs (2-bit packed
-    codes + per-READ good length and barcode): the per-position arrays are
-    rebuilt on the device (the same values prepare_reads builds on the
-    host), then extract + tail cut + raw reduce."""
-    rl = uniform_rl
-    grid = nbp // rl
-    codes_ext = _unpack_codes_dev(codes_packed, nbp, max(K, 128))
-    pos_read = (torch.arange(nbp, device=codes_ext.device) // rl).clamp(max=n_reads)
-    glen_pos = glen_r[:, None].expand(grid, rl).reshape(-1)
-    bc_pos = bc_r[:, None].expand(grid, rl).reshape(-1)
-    canon, bc, lm, rm, valid = extract_occurrences(codes_ext, pos_read, glen_pos, bc_pos)
-    pk = pack_occurrence_attrs(bc, lm, rm, valid)
-    a_, b_, c_, pk = uniform_tail_cut(rl, canon.a, canon.b, canon.c, pk)
-    canon = W3(a_, b_, c_).where(((pk >> 1) & 1) == 1, kc.SENTINEL)
-    return _reduce_occurrences_raw(canon, pk)
+def count_block_raw(codes_ext, pos_read, glen_pos, bc_pos,
+                    uniform_rl: int | None = None) -> RawBlockTable:
+    """One block of the blocked count from per-position inputs
+    (prepare_reads): extract (+ the tail cut for uniform reads) and the raw
+    reduce, K1, K4, K3 and K2 on the card."""
+    return _reduce_occurrences_raw(*occurrence_rows(codes_ext, pos_read, glen_pos, bc_pos,
+                                                    uniform_rl))
 
 
 def split_readset_blocks(rs, max_positions: int):
@@ -634,29 +644,25 @@ def count_readset_blocked(rs, device, min_freq: int | None = None, min_bc: int |
     device = torch.device(device)
     min_freq = MIN_FREQ if min_freq is None else min_freq
     min_bc = MIN_BC if min_bc is None else min_bc
-    if _uniform_rl(rs) is None:
-        raise NotImplementedError(
-            "blocked counting of mixed-length readsets (the reference's "
-            "count_block_raw) is not ported: ROADMAP queue"
-        )
     max_positions = max_positions or BLOCK_POSITIONS
     blocks = split_readset_blocks(rs, max_positions)
     # every block pads to the largest one, as the reference's shared shape
     pad_pos = max(int(b.offsets[-1]) for b in blocks)
-    meta = dict(n_blocks=len(blocks), pad_pos=pad_pos, pad_rd=max(b.n_reads for b in blocks),
-                n_reads=int(rs.n_reads), min_freq=int(min_freq), min_bc=int(min_bc),
-                packed=True)
-    t = lambda a: torch.from_numpy(a).to(device)
+    pad_rd = max(b.n_reads for b in blocks)
+    meta = dict(n_blocks=len(blocks), pad_pos=pad_pos, pad_rd=pad_rd,
+                n_reads=int(rs.n_reads), min_freq=int(min_freq), min_bc=int(min_bc))
+
+    def count_block(b):
+        p = prepare_reads(b, device, pad_to_positions=pad_pos, pad_to_reads=pad_rd)
+        return count_block_raw(p["codes_ext"], p["pos_read"], p["glen_pos"], p["bc_pos"],
+                               p["uniform_rl"])
+
     with spill.SpillDir(spill_dir, meta) as sd:
         pending = [i for i in range(len(blocks)) if not sd.done(i)]
         log.info("blocked count: %d blocks at <=%d positions, %d already spilled - %s",
                  len(blocks), max_positions, len(blocks) - len(pending), _device_memory(device))
         for i in pending:
-            p = prepare_reads_packed(blocks[i], pad_to_positions=pad_pos)
-            raw = count_block_raw_packed(
-                t(p["codes_packed"]), t(p["glen"]), t(p["read_bc"]), p["n_reads"],
-                p["uniform_rl"], p["nbp"],
-            )
+            raw = count_block(blocks[i])
             # drop the block's device buffers before the next block (and,
             # after the last, before the merge reads its budget)
             rows = len(sd.save(i, raw_block_columns(raw))[0])
@@ -721,41 +727,48 @@ def _free_failed_attempt(e: BaseException) -> None:
     torch.cuda.empty_cache()
 
 
+def halving_retry(what: str, device: torch.device, info: dict | None, attempt):
+    """attempt(max_positions) at BLOCK_POSITIONS; on a device OOM the
+    failed attempt is freed and the block size halved, down to
+    MIN_BLOCK_POSITIONS (smaller blocks on the same card: the blocked count
+    and pather give the same output at any block size).  Any other error,
+    or an OOM at the smallest size, raises.  info receives oom_retries."""
+    max_pos, retries = BLOCK_POSITIONS, 0
+    while True:
+        try:
+            out = attempt(max_pos)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            if max_pos // 2 < MIN_BLOCK_POSITIONS:
+                raise
+            log.warning("%s: device OOM at block=%d positions (%s; %.120s); "
+                        "retrying with block=%d", what, max_pos, _device_memory(device), e,
+                        max_pos // 2)
+            _free_failed_attempt(e)
+            max_pos //= 2
+            retries += 1
+    if info is not None:
+        info["oom_retries"] = retries
+    return out
+
+
 def count_readset(rs, device, min_freq: int | None = None, min_bc: int | None = None,
                   info: dict | None = None, spill_dir=None) -> KmerTable:
     """ReadSet -> filtered, adjacency-true KmerTable on `device`.
 
     Readsets above BLOCK_POSITIONS bases take the blocked count (`info`
-    receives its counts, and oom_retries; spill_dir as there).  On a device
-    OOM it halves the block size and retries, down to MIN_BLOCK_POSITIONS
-    (smaller blocks on the same card: the table does not depend on the
-    block size); any other error, or an OOM at the smallest size, raises.
-    The table is trimmed to the geometric-ladder row count before the
-    adjacency recompute, so its membership joins run at table scale."""
+    receives its counts, and oom_retries; spill_dir as there) under
+    halving_retry.  The table is trimmed to the geometric-ladder row count
+    before the adjacency recompute, so its membership joins run at table
+    scale."""
     from ..dbg.build import trim_table
 
     device = torch.device(device)
     min_freq = MIN_FREQ if min_freq is None else min_freq
     min_bc = MIN_BC if min_bc is None else min_bc
     if int(rs.offsets[-1]) > BLOCK_POSITIONS:
-        max_pos, retries = BLOCK_POSITIONS, 0
-        while True:
-            try:
-                table = count_readset_blocked(rs, device, min_freq, min_bc, max_positions=max_pos,
-                                              spill_dir=spill_dir, info=info)
-                break
-            except torch.cuda.OutOfMemoryError as e:
-                if max_pos // 2 < MIN_BLOCK_POSITIONS:
-                    raise
-                log.warning("count: device OOM at block=%d positions (%s; %.120s); "
-                            "retrying with block=%d", max_pos, _device_memory(device), e,
-                            max_pos // 2)
-                _free_failed_attempt(e)
-                max_pos //= 2
-                retries += 1
-        if info is not None:
-            info["oom_retries"] = retries
-        return table
+        return halving_retry("count", device, info, lambda max_pos: count_readset_blocked(
+            rs, device, min_freq, min_bc, max_positions=max_pos, spill_dir=spill_dir, info=info))
     inp = prepare_reads(rs, device)
     table = count_kmers(
         inp["codes_ext"], inp["pos_read"], inp["glen_pos"], inp["bc_pos"],

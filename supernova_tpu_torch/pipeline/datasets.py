@@ -10,17 +10,26 @@ count block of the same shape: a 2 Mb genome, 600 barcodes, ~600k reads,
 ~90M bases, just under BLOCK_POSITIONS.  SMALL is the 8 kb genome of the
 repo's verify notes.  All go through the port's copies of the simulator
 and ingest.
+
+A real 10x readset has R1 shorter than R2: R1 starts with the 16-base
+barcode and 7 trimmed bases, which ingest drops.  `r1_trimmed` cuts any of
+these readsets that way (R1 127 bases, R2 150): GENOME so cut has 3,000,000
+reads and 415,500,000 bases, five count blocks of mixed-length reads.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..ingest.ingest import ingest_sim
+from ..ingest.reads import ReadSet
 from ..sim import genome as sim
 
 GENOME_SEED = 20261017
 FULL_SEED = 20261016
 SMALL_SEED = 7
+# bases ingest drops from the 5' end of every 10x R1: the barcode (16) and
+# trim_length (7) (supernova_tpu/ingest/tenx.py:4, skip at :193)
+R1_SKIP = 23
 GENOME = dict(genome_len=10_000_000, het=0.001, whitelist=16_384, n_barcodes=3_000,
               molecules_per_barcode=10, molecule_len=50_000,
               coverage_per_molecule=0.3, error_rate=0.002, bc_error_rate=0.02)
@@ -46,3 +55,18 @@ def simulate(cfg: dict, seed: int):
         error_rate=cfg["error_rate"], bc_error_rate=cfg["bc_error_rate"],
     )
     return ingest_sim(reads, wl)
+
+
+def r1_trimmed(rs: ReadSet, skip: int = R1_SKIP) -> ReadSet:
+    """rs with the first `skip` bases (codes and quals) of every R1 (the
+    even reads of each pair) dropped; the same barcodes and bci."""
+    lens = rs.lengths()
+    cut = np.zeros(rs.n_reads, np.int64)
+    cut[0::2] = np.minimum(skip, lens[0::2])
+    keep = np.ones(len(rs.codes), bool)
+    first = np.repeat(rs.offsets[:-1], cut)
+    keep[first + np.arange(len(first)) - np.repeat(np.cumsum(cut) - cut, cut)] = False
+    return ReadSet(
+        codes=rs.codes[keep], offsets=np.concatenate([[0], np.cumsum(lens - cut)]),
+        quals=rs.quals[keep], bc=rs.bc, bci=rs.bci, barcoded=rs.barcoded,
+    )

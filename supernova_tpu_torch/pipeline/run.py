@@ -9,22 +9,27 @@ record then holds its block, row, partition, spill and OOM-retry counts.
 stage_count and stage_graph write kmers.npz,
 stats/histogram_kmer_count.json and graph.npz
 in the reference's formats and log kmers_distinct, n_edges, edge_N50 and
-assembly_checksum.  stage_paths stops at the raw pather output: the
-qual-tolerant rescue and extend_paths (and with them paths.npz) are not
-ported yet; it logs placed_perc.  all_stats.json is rewritten after every
-stage.
+assembly_checksum.  stage_paths runs the pather, then the reference's
+qual-tolerant rescue (align/rescue.py) and extend_paths (asm/bads.py) on
+the host, writes paths.npz (align/pathzip.py) and ebcx.npz
+(align/index.py), and logs paths_rescued, paths_extended and placed_perc
+as the reference does.  all_stats.json is rewritten after every stage.
 """
 from __future__ import annotations
 
 import logging
 import shutil
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from .. import convert
-from ..align import pather
+from ..align import index as pindex
+from ..align import pather, pathzip
+from ..align import rescue as arescue
+from ..asm import bads as abads
 from ..core.device import resolve_device
 from ..dbg import build as dbuild
 from ..dbg import graph as dgraph
@@ -163,8 +168,31 @@ class Pipeline:
         return bg
 
     def stage_paths(self, bg: dgraph.BaseGraph, rs: ReadSet) -> pather.ReadPaths:
-        rp = pather.path_readset(bg, rs, self.device)
-        plen = rp.path_len[: rs.n_reads].cpu().numpy()
-        placed = float((plen > 0).mean()) if rs.n_reads else 0.0
+        """Pather, rescue, extend, paths.npz, placed_perc and ebcx.npz, step
+        for step as the reference's run.py:578-626.  The stage's record
+        holds the blocked pather's counts and the host seconds of rescue
+        (rescue_s) and extend (extend_s)."""
+        rec = self.stage_records.setdefault("paths", {})
+        rp = pather.path_readset(bg, rs, self.device, info=rec)
+        n = rs.n_reads
+        edges, plen, offset = (x[:n] for x in convert.readpaths_to_numpy(rp)[:3])
+        t0 = time.perf_counter()
+        edges, plen, offset, n_resc = arescue.rescue_unplaced(bg, rs, edges, plen, offset)
+        t1 = time.perf_counter()
+        if n_resc:
+            self.stats.log("paths_rescued", n_resc,
+                           "zero-hit reads placed by low-qual substitution seeds", stage="paths")
+        edges, plen, offset, n_ext = abads.extend_paths(bg, rs, edges, plen, offset)
+        rec.update(rescue_s=t1 - t0, extend_s=time.perf_counter() - t1)
+        if n_ext or n_resc:
+            t = lambda a: torch.from_numpy(a.astype(np.int64)).to(self.device)
+            rp = rp._replace(edges=t(edges), path_len=t(plen), offset=t(offset))
+            self.stats.log("paths_extended", n_ext, stage="paths")
+        pathzip.save_zipped(self.outdir / "paths.npz", bg, edges, plen, offset,
+                            extra={"n_edges": np.int64(bg.n_edges)})
+        placed = float((plen > 0).mean()) if n else 0.0
         self.stats.log("placed_perc", placed * 100, "% reads pathed", stage="paths")
+        ebcx = pindex.edge_barcodes(edges, plen, rs.bc, bg.n_edges)
+        np.savez_compressed(self.outdir / "ebcx.npz", values=ebcx.values, offsets=ebcx.offsets,
+                            counts=pindex.edge_read_counts(edges, plen, bg.n_edges))
         return rp

@@ -3,7 +3,9 @@
     python3 -m supernova_tpu_torch.stats.profile_slice OUT.txt [DATASET]
 
 DATASET is a name in pipeline/datasets.py DATASETS (FULL, one count block,
-by default; GENOME for the blocked count and pather).  Builds the kernels,
+by default; GENOME for the blocked count and pather), with the suffix
+_MIXED for the readset cut by datasets.r1_trimmed (mixed read lengths: the
+general pather).  Builds the kernels,
 runs the 8 kb slice once on CUDA as a warm-up, times the host preparation
 steps alone, then runs each stage of Pipeline(device="cuda") on the
 dataset inside its own torch.profiler.profile(CPU, CUDA).  Per stage it writes the wall
@@ -92,15 +94,18 @@ def main(out_path: str, dataset: str = "FULL") -> int:
     dev = torch.device("cuda", 0)
     emit(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}, dataset {dataset}")
     _lib.library()
-    rs = datasets.simulate(*datasets.DATASETS[dataset])
+    rs = datasets.simulate(*datasets.DATASETS[dataset.removesuffix("_MIXED")])
+    if dataset.endswith("_MIXED"):
+        rs = datasets.r1_trimmed(rs)
     with tempfile.TemporaryDirectory() as d:
         Pipeline(d, device=dev).run(datasets.simulate(datasets.SMALL, datasets.SMALL_SEED))
 
-    if int(rs.offsets[-1]) <= kcount.BLOCK_POSITIONS:  # the blocked count packs every block
-        t = time.perf_counter()
-        kcount.prepare_reads(rs, dev)
-        torch.cuda.synchronize()
-        emit(f"host prepare_reads (+H2D): {time.perf_counter() - t:.3f} s")
+    block = kcount.split_readset_blocks(rs, kcount.BLOCK_POSITIONS)[0]
+    t = time.perf_counter()
+    kcount.prepare_reads(block, dev)
+    torch.cuda.synchronize()
+    emit(f"host prepare_reads (+H2D and device expansion) of the first block "
+         f"({int(block.offsets[-1])} bases): {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
     kcount.prepare_reads_packed(rs)
     emit(f"host prepare_reads_packed: {time.perf_counter() - t:.3f} s")
@@ -131,9 +136,11 @@ def main(out_path: str, dataset: str = "FULL") -> int:
         bg.checksum()
         emit(f"host BaseGraph.checksum: {time.perf_counter() - t:.3f} s")
         run_stage("paths", pl.stage_paths, bg, rs2)
-        emit(str({k: pl.stats.get(k)
-                  for k in ("kmers_distinct", "n_edges", "edge_N50", "placed_perc")}))
+        emit(str({k: pl.stats.get(k) for k in ("kmers_distinct", "n_edges", "edge_N50",
+                                                "paths_rescued", "paths_extended",
+                                                "placed_perc")}))
         emit(f"count: {pl.stage_records['count']}")
+        emit(f"paths: {pl.stage_records['paths']}")
     out.close()
     return 0
 

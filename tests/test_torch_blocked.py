@@ -17,9 +17,11 @@ from supernova_tpu_torch import convert
 from supernova_tpu_torch.align import pather
 from supernova_tpu_torch.dbg import graph as dgraph
 from supernova_tpu_torch.kmer import count as kcount
+from supernova_tpu_torch.pipeline.datasets import r1_trimmed
 from supernova_tpu_torch.pipeline.run import Pipeline
 
-from tests.test_torch_count import assert_tables_equal, mixed_length_readset
+from tests.test_torch_count import assert_tables_equal
+from tests.test_torch_slice import assert_npz_equal, assert_stage_paths_match, reference_stage_paths
 
 MAX_POS = 100_000
 
@@ -102,21 +104,23 @@ def test_split_readset_blocks_matches_reference(rs, max_positions):
 
 
 def test_count_block_raw_packed_matches_reference(rs):
-    """One block's unfiltered raw table (packed inputs, device expansion)."""
+    """One uniform block's unfiltered raw table as the blocked count makes
+    it (prepare_reads, expanded on the device, then count_block_raw) equals
+    the reference's from its packed inputs (count_block_raw_packed)."""
     import jax.numpy as jnp
 
-    block = kcount.split_readset_blocks(rs, MAX_POS)[1]
+    blocks = kcount.split_readset_blocks(rs, MAX_POS)
+    block = blocks[1]
     rp = rcount.prepare_reads_packed(block, pad_to_positions=MAX_POS)
-    pp = kcount.prepare_reads_packed(block, pad_to_positions=MAX_POS)
     ref = rcount.count_block_raw_packed(
         jnp.asarray(rp["codes_packed"]), jnp.asarray(rp["glen"]), jnp.asarray(rp["read_bc"]),
         jnp.asarray(np.int32(rp["n_reads"])), uniform_rl=rp["uniform_rl"], nbp=rp["nbp"],
     )
-    t = torch.from_numpy
-    port = kcount.count_block_raw_packed(
-        t(pp["codes_packed"]), t(pp["glen"]), t(pp["read_bc"]), pp["n_reads"],
-        pp["uniform_rl"], pp["nbp"],
-    )
+    p = kcount.prepare_reads(block, "cpu", pad_to_positions=MAX_POS,
+                             pad_to_reads=max(b.n_reads for b in blocks))
+    assert p["uniform_rl"] == rp["uniform_rl"] and p["pos_read"].shape[0] == rp["nbp"]
+    port = kcount.count_block_raw(p["codes_ext"], p["pos_read"], p["glen_pos"], p["bc_pos"],
+                                  p["uniform_rl"])
     assert int(ref.n_valid) == int(port.n_valid) > 1000
     for i in range(3):
         assert np.array_equal(np.asarray(ref.words[i]).astype(np.int64), port.words[i].numpy())
@@ -195,11 +199,30 @@ def test_pipeline_blocked_equals_unblocked(rs, tmp_path, monkeypatch):
     assert pl.stats.get("placed_perc") > 90
 
 
-def test_blocked_paths_raise_where_not_ported(rs, port_blocked, monkeypatch):
-    """Mixed-length readsets still raise above one block.  Raw rows above
-    the card's merge budget take the partitioned merge: the same table."""
-    with pytest.raises(NotImplementedError, match="mixed-length"):
-        kcount.count_readset_blocked(mixed_length_readset(), "cpu", max_positions=10_000)
+def test_blocked_paths_raise_where_not_ported(rs, port_blocked, tmp_path, monkeypatch):
+    """A mixed-length readset (every R1 cut by R1_SKIP, as a real 10x run
+    has it) above one block runs through Pipeline: the blocked mixed count,
+    the graph and the blocked general pather with rescue, extend, paths.npz
+    and ebcx.npz, each equal to the reference's stage functions.  Raw rows
+    above the card's merge budget take the partitioned merge: the same
+    table.  (The name predates the port of the mixed-length blocked paths,
+    when they raised.)"""
+    mixed = r1_trimmed(rs)
+    monkeypatch.setattr(kcount, "BLOCK_POSITIONS", MAX_POS)
+    monkeypatch.setattr(rcount, "BLOCK_POSITIONS", MAX_POS)
+    pl = Pipeline(tmp_path / "port", device="cpu")
+    table, _, rp = pl.run(mixed)
+    assert pl.stage_records["count"]["blocks"] >= 3 and pl.stage_records["paths"]["blocks"] >= 3
+    assert pl.stage_records["paths"]["oom_retries"] == 0
+    rt = rbuild.trim_table(rcount.count_readset(mixed))
+    assert_tables_equal(rt, table)
+    rbg = rgraph.from_device(rbuild.build_graph(rt), rt)
+    rbg.save(tmp_path / "graph.npz")
+    assert_npz_equal(tmp_path / "graph.npz", tmp_path / "port" / "graph.npz")
+    rrp, rstats = reference_stage_paths(rbg, mixed, tmp_path)
+    assert_stage_paths_match(pl, tmp_path / "port", rp, rrp, rstats, tmp_path, mixed.n_reads)
+    assert rstats["placed_perc"] > 90
+
     monkeypatch.setattr(kcount, "merge_row_limit", lambda device: 1000)
     info = {}
     table = kcount.count_readset_blocked(rs, "cpu", max_positions=MAX_POS, info=info)

@@ -189,9 +189,16 @@ def test_estimate_coverage_and_rev4(readsets):
 
 
 def test_count_above_one_block_raises(readsets, monkeypatch):
-    """Above one block a uniform-length readset takes the blocked count
-    (tests/test_torch_blocked.py); a mixed-length one raises, since its
-    blocked count is not ported."""
+    """Above one block a mixed-length readset takes the blocked count
+    (count_block_raw on prepare_reads' inputs) and gives the reference's
+    count_readset_blocked table and the port's single-block one.  (The
+    name predates the port of the mixed blocked count, which raised.)"""
+    rs = readsets["mixed"]
+    single = kcount.count_readset(rs, "cpu")
     monkeypatch.setattr(kcount, "BLOCK_POSITIONS", 10_000)
-    with pytest.raises(NotImplementedError, match="mixed-length"):
-        kcount.count_readset(readsets["mixed"], "cpu")
+    info = {}
+    port = kcount.count_readset(rs, "cpu", info=info)
+    assert info["blocks"] >= 3 and info["oom_retries"] == 0
+    assert_tables_equal(rcount.count_readset_blocked(rs, max_positions=10_000), port)
+    assert_tables_equal(rcount.count_readset(rs), single)
+    assert_tables_equal(rcount.count_readset(rs), port)

@@ -360,3 +360,35 @@ def test_partitioned_count_cuda_equals_cpu(dev, tmp_path):
         assert want.n_valid == got.n_valid
         for x, y in zip((*want.words, *want[1:5]), (*got.words, *got[1:5])):
             assert x.dtype == y.dtype and np.array_equal(x, y)
+
+
+def test_mixed_slice_cuda_equals_cpu(dev, tmp_path, monkeypatch):
+    """The blocked readset with every R1 cut by R1_SKIP (mixed-length reads)
+    in >= 3 blocks: the blocked mixed count, the chunked graph build and the
+    blocked general pather with rescue and extend on CUDA give the CPU's
+    kmers.npz, graph.npz, paths.npz, ebcx.npz, ReadPaths and stats, with
+    every kernel launched."""
+    from supernova_tpu_torch.dbg import build as dbuild
+    from supernova_tpu_torch.pipeline.datasets import r1_trimmed
+
+    rs = r1_trimmed(blocked_readset())
+    monkeypatch.setattr(kcount, "BLOCK_POSITIONS", 100_000)
+    kernels.reset_launch_counts()
+    pg = Pipeline(tmp_path / "cuda", device="cuda")
+    tg, _, rg = pg.run(rs)
+    assert all(c > 0 for c in kernels.launch_counts().values())
+    assert pg.stage_records["count"]["blocks"] >= 3 and pg.stage_records["paths"]["blocks"] >= 3
+    pc = Pipeline(tmp_path / "cpu", device="cpu")
+    _, _, rc = pc.run(rs)
+    for name in ("kmers.npz", "graph.npz", "paths.npz", "ebcx.npz"):
+        zg, zc = np.load(tmp_path / "cuda" / name), np.load(tmp_path / "cpu" / name)
+        assert zg.files == zc.files
+        for k in zc.files:
+            assert zg[k].dtype == zc[k].dtype and np.array_equal(zg[k], zc[k]), (name, k)
+    for x, y in zip(convert.readpaths_to_numpy(rg), convert.readpaths_to_numpy(rc)):
+        assert np.array_equal(x[: rs.n_reads], y[: rs.n_reads])
+    for k in ("placed_perc", "paths_rescued", "paths_extended"):
+        assert pg.stats.get(k) == pc.stats.get(k), k
+    whole, chunked = dbuild.build_links(tg), dbuild.build_links(tg, chunk=1001)
+    for a, b in zip(whole, chunked):
+        assert torch.equal(a, b)

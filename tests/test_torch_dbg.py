@@ -75,6 +75,36 @@ def test_links_match_reference(case):
     )
 
 
+@pytest.mark.parametrize("chunk", [257, 500])
+def test_links_chunked_match_unchunked_and_reference(case, chunk):
+    """The successor resolve in chunks of oriented nodes (several chunks,
+    the last one short) gives the one-join links and the reference's."""
+    _, table = case
+    pt = convert.table_from_numpy(table, "cpu")
+    n2 = 2 * pt.words.a.shape[0]
+    assert n2 > 2 * chunk and n2 % chunk
+    rl = rbuild.build_links(table)
+    whole = dbuild.build_links(pt, chunk=n2)
+    chunked = dbuild.build_links(pt, chunk=chunk)
+    for f in ("next", "prev", "head", "dist"):
+        assert torch.equal(getattr(whole, f), getattr(chunked, f)), f
+        assert np.array_equal(np.asarray(getattr(rl, f)), getattr(chunked, f).numpy()), f
+
+
+def test_link_chunk_rows(monkeypatch):
+    """One join of all 2m oriented nodes whenever table + nodes fit the
+    free memory at LINK_BYTES_PER_ROW, else what fits (at least 2^20); the
+    CPU sets no limit."""
+    m = 5_000_000
+    assert dbuild.link_chunk_rows(torch.device("cpu"), m) == 2 * m
+    cuda = torch.device("cuda")
+    per = dbuild.LINK_BYTES_PER_ROW
+    for free, want in ((3 * m * per, 2 * m), (10 * m * per, 2 * m),
+                       (2 * m * per, m), (m * per, 1 << 20)):
+        monkeypatch.setattr(dbuild.kcount, "free_device_bytes", lambda device: free)
+        assert dbuild.link_chunk_rows(cuda, m) == want, free
+
+
 def test_trim_table_and_geom_bucket(case):
     _, table = case
     pt = convert.table_from_numpy(table, "cpu")

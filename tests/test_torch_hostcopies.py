@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's host modules (ingest, sim, core
-dna/ragged/pqvec, stats gems/histograms/logger, the feudal 2-bit packing)
-against their originals: the same source apart from the note that names
-the original, and the same outputs on the same inputs."""
+dna/ragged/pqvec, stats gems/histograms/logger, the feudal 2-bit packing,
+align rescue/pathzip/index, asm bads) against their originals: the same
+source apart from the note that names the original, and the same outputs
+on the same inputs."""
 import inspect
 import json
 from pathlib import Path
@@ -9,6 +10,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import supernova_tpu_torch.align.index as p_index
+import supernova_tpu_torch.align.pathzip as p_pathzip
+import supernova_tpu_torch.align.rescue as p_rescue
+import supernova_tpu_torch.asm.bads as p_bads
 import supernova_tpu_torch.core.pqvec as p_pqvec
 import supernova_tpu_torch.core.ragged as p_ragged
 import supernova_tpu_torch.ingest.feudal as p_feudal
@@ -18,12 +23,19 @@ import supernova_tpu_torch.sim.genome as p_sim
 import supernova_tpu_torch.stats.gems as p_gems
 import supernova_tpu_torch.stats.histograms as p_hist
 import supernova_tpu_torch.stats.logger as p_logger
+from supernova_tpu.align import index as r_index
+from supernova_tpu.align import pather as r_pather
+from supernova_tpu.align import pathzip as r_pathzip
+from supernova_tpu.align import rescue as r_rescue
+from supernova_tpu.asm import bads as r_bads
 from supernova_tpu.core import dna as r_dna
 from supernova_tpu.core import pqvec as r_pqvec
 from supernova_tpu.core import ragged as r_ragged
 from supernova_tpu.ingest import feudal as r_feudal
 from supernova_tpu.ingest import ingest as r_ingest
 from supernova_tpu.ingest import reads as r_reads
+from supernova_tpu.dbg import build as r_build
+from supernova_tpu.dbg import graph as r_graph
 from supernova_tpu.kmer import count as rcount
 from supernova_tpu.sim import genome as r_sim
 from supernova_tpu.stats import gems as r_gems
@@ -35,7 +47,8 @@ from supernova_tpu_torch.core import dna as p_dna
 REPO = Path(__file__).resolve().parents[1]
 COPIES = ["core/dna.py", "core/ragged.py", "core/pqvec.py", "ingest/reads.py",
           "ingest/ingest.py", "ingest/barcodes.py", "sim/genome.py", "stats/gems.py",
-          "stats/histograms.py", "stats/logger.py"]
+          "stats/histograms.py", "stats/logger.py", "align/rescue.py", "align/pathzip.py",
+          "align/index.py", "asm/bads.py"]
 
 
 @pytest.mark.parametrize("path", COPIES)
@@ -173,3 +186,55 @@ def test_gems_and_small_helpers_match(readsets):
     book = p_pqvec.build_codebook(quals)
     assert np.array_equal(book, r_pqvec.build_codebook(quals))
     assert np.array_equal(p_pqvec.pack(quals, book), r_pqvec.pack(quals, book))
+
+
+@pytest.fixture(scope="module")
+def placed(readsets):
+    """The reference's graph and raw paths of the readset, with every 9th
+    placed read unplaced (plen 0) so that the rescue has work."""
+    rs, _ = readsets
+    table = r_build.trim_table(rcount.count_readset(rs))
+    bg = r_graph.from_device(r_build.build_graph(table), table)
+    n = rs.n_reads
+    edges, plen, offset = (np.array(x)[:n] for x in r_pather.path_readset(bg, rs)[:3])
+    plen[::9] = 0
+    return rs, bg, edges, plen, offset
+
+
+def test_rescue_and_extend_outputs_match(placed):
+    rs, bg, edges, plen, offset = placed
+    fs_r, fs_p = np.zeros(rs.n_reads, np.int32), np.zeros(rs.n_reads, np.int32)
+    ref = r_rescue.rescue_unplaced(bg, rs, edges.copy(), plen.copy(), offset.copy(), fs_r)
+    port = p_rescue.rescue_unplaced(bg, rs, edges.copy(), plen.copy(), offset.copy(), fs_p)
+    assert ref[3] == port[3] > 10 and np.array_equal(fs_r, fs_p)
+    for a, b in zip(ref[:3], port[:3]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    ref = r_bads.extend_paths(bg, rs, *ref[:3])
+    port = p_bads.extend_paths(bg, rs, *port[:3])
+    assert ref[3] == port[3] > 0
+    for a, b in zip(ref[:3], port[:3]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert np.array_equal(r_bads.mark_bads(bg, rs, *ref[:3]), p_bads.mark_bads(bg, rs, *port[:3]))
+    assert np.array_equal(r_bads.unique_next_edges(bg), p_bads.unique_next_edges(bg))
+
+
+def test_pathzip_and_index_outputs_match(placed, tmp_path):
+    rs, bg, edges, plen, offset = placed
+    edges[5, 1] = edges[7, 0]  # a path that is not graph-adjacent: the raw fallback
+    plen[5] = max(plen[5], 2)
+    for mod, name in ((r_pathzip, "r"), (p_pathzip, "p")):
+        mod.save_zipped(tmp_path / f"{name}.npz", bg, edges, plen, offset.astype(np.int64),
+                        extra={"n_edges": np.int64(bg.n_edges)})
+    zr, zp = np.load(tmp_path / "r.npz"), np.load(tmp_path / "p.npz")
+    assert zr.files == zp.files and len(zp["zip_raw_rows"]) >= 1
+    for k in zr.files:
+        assert zr[k].dtype == zp[k].dtype and np.array_equal(zr[k], zp[k]), k
+    for a, b in zip(r_pathzip.load_zipped(zr, bg), p_pathzip.load_zipped(zp, bg)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    for fn, args in (("paths_index", (edges, plen, bg.n_edges)),
+                     ("edge_barcodes", (edges, plen, rs.bc, bg.n_edges))):
+        a, b = getattr(r_index, fn)(*args), getattr(p_index, fn)(*args)
+        assert np.array_equal(a.values, b.values) and np.array_equal(a.offsets, b.offsets), fn
+    a = r_index.edge_read_counts(edges, plen, bg.n_edges)
+    b = p_index.edge_read_counts(edges, plen, bg.n_edges)
+    assert a.dtype == b.dtype and np.array_equal(a, b)

@@ -23,7 +23,7 @@ from supernova_tpu_torch.pipeline.run import Pipeline
 
 from tests.test_torch_blocked import MAX_POS, blocked_readset
 
-META_KEYS = {"n_blocks", "pad_pos", "pad_rd", "n_reads", "min_freq", "min_bc", "packed"}
+META_KEYS = {"n_blocks", "pad_pos", "pad_rd", "n_reads", "min_freq", "min_bc"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -173,18 +173,18 @@ def test_plan_partitions_cuts_on_word_boundaries():
 
 
 def test_spill_resume(rs, single, raw_rows, tmp_path, monkeypatch):
-    """A persistent spill directory: markers and the reference's meta are
+    """A persistent spill directory: markers and the block plan's meta are
     written, a block whose marker is gone is the only one recounted, a
     different block size clears the stale spills, and every table is the
     single-block one."""
     calls = []
-    real = kcount.count_block_raw_packed
+    real = kcount.count_block_raw
 
     def counting(*a, **kw):
         calls.append(1)
         return real(*a, **kw)
 
-    monkeypatch.setattr(kcount, "count_block_raw_packed", counting)
+    monkeypatch.setattr(kcount, "count_block_raw", counting)
     sd = tmp_path / "spill"
     merge_rows = int(raw_rows / 2.5)
 
@@ -202,7 +202,7 @@ def test_spill_resume(rs, single, raw_rows, tmp_path, monkeypatch):
     assert info["partitions"] == 4
     meta = json.loads((sd / "meta.json").read_text())
     assert set(meta) == META_KEYS
-    assert meta["n_blocks"] == nb and meta["n_reads"] == rs.n_reads and meta["packed"] is True
+    assert meta["n_blocks"] == nb and meta["n_reads"] == rs.n_reads
     oks = sorted(sd.glob("b*.ok"))
     assert len(oks) == nb
     # 20 B a raw row on disk: uint32 words, int32 count, uint32 stats

@@ -16,8 +16,7 @@ from supernova_tpu_torch import convert
 from supernova_tpu_torch.align import pather
 from supernova_tpu_torch.dbg import graph as dgraph
 from supernova_tpu_torch.kmer import count as kcount
-
-from tests.test_torch_count import mixed_length_readset
+from supernova_tpu_torch.pipeline.datasets import r1_trimmed
 
 
 @pytest.fixture(scope="module")
@@ -90,12 +89,26 @@ def test_select_best_run_and_overflow(world, max_path):
 
 
 def test_unported_readsets_raise(world, monkeypatch):
-    """Mixed-length readsets need the general pather, in one block or
-    above it (the uniform blocked pather: tests/test_torch_blocked.py)."""
-    rs, _, pbg = world
-    with pytest.raises(NotImplementedError, match="general pather"):
-        pather.path_readset(pbg, mixed_length_readset(), "cpu")
-    monkeypatch.setattr(kcount, "BLOCK_POSITIONS", 1000)
-    with pytest.raises(NotImplementedError, match="general pather"):
-        pather.path_readset(pbg, mixed_length_readset(), "cpu")
+    """Mixed-length readsets take the general pather, at one block (rp
+    padded rows) and blocked (n_reads rows), and give the reference's
+    path_readset and _path_readset_blocked, dtypes and row counts included.
+    (The name predates the general pather's port, when they raised.)"""
+    rs, rbg, pbg = world
+    rs = r1_trimmed(rs)
+    for max_positions in (None, 10_000):
+        if max_positions is None:
+            ref = rpather.path_readset(rbg, rs)
+            port = pather.path_readset(pbg, rs, "cpu")
+            assert port.edges.shape[0] == kcount._round_up(rs.n_reads + 1, 1024)
+        else:
+            monkeypatch.setattr(kcount, "BLOCK_POSITIONS", max_positions)
+            ref = rpather._path_readset_blocked(rbg, rs, rpather.MAX_PATH,
+                                                max_positions=max_positions)
+            info = {}
+            port = pather.path_readset(pbg, rs, "cpu", info=info)
+            assert info["blocks"] >= 3 and info["oom_retries"] == 0
+            assert port.edges.shape[0] == rs.n_reads
+        assert port.edges.shape == tuple(np.asarray(ref.edges).shape)
+        assert_paths_equal(ref, port)
+        assert (port.path_len[: rs.n_reads] > 0).float().mean() > 0.9
     assert isinstance(pbg.device_arrays("cpu")["node_edge"], torch.Tensor)

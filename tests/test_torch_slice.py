@@ -2,8 +2,10 @@
 (ingest -> count -> graph -> paths) against the reference's stage
 functions, called as supernova_tpu/pipeline/run.py calls them on one
 device (count_readset -> trim_table -> build_graph + from_device ->
-path_readset), on the 8 kb genome of the verify recipe.  Exact equality of
-kmers.npz and graph.npz array by array and of ReadPaths[:n_reads].
+path_readset -> rescue_unplaced -> extend_paths -> paths.npz, ebcx.npz),
+on the 8 kb genome of the verify recipe.  Exact equality of kmers.npz,
+graph.npz, paths.npz and ebcx.npz array by array, of ReadPaths[:n_reads]
+and of the stats.
 
 The reference Pipeline itself is not constructed: its __init__ turns on
 the persistent compile cache that tests/conftest.py keeps off."""
@@ -16,7 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from supernova_tpu.align import index as rindex
 from supernova_tpu.align import pather as rpather
+from supernova_tpu.align import pathzip as rpathzip
+from supernova_tpu.align import rescue as rrescue
+from supernova_tpu.asm import bads as rbads
 from supernova_tpu.dbg import build as rbuild
 from supernova_tpu.dbg import graph as rgraph
 from supernova_tpu.ingest.ingest import ingest_sim
@@ -44,21 +50,72 @@ def skill_readset():
     return ingest_sim(reads, wl)
 
 
+def reference_stage_paths(rbg, rs, outdir):
+    """The reference's stage_paths (supernova_tpu/pipeline/run.py:578-626)
+    on one device, step for step: pather, rescue, extend, paths.npz,
+    placed_perc, ebcx.npz -> (ReadPaths, {stat: value} in logging order)."""
+    import jax.numpy as jnp
+
+    rp = rpather.path_readset(rbg, rs)
+    n = rs.n_reads
+    edges, plen, offset = (np.asarray(x)[:n] for x in rp[:3])
+    edges, plen, offset, n_resc = rrescue.rescue_unplaced(rbg, rs, edges, plen, offset)
+    stats = {}
+    if n_resc:
+        stats["paths_rescued"] = n_resc
+    edges, plen, offset, n_ext = rbads.extend_paths(rbg, rs, edges, plen, offset)
+    if n_ext or n_resc:
+        rp = rp._replace(edges=jnp.asarray(edges), path_len=jnp.asarray(plen),
+                         offset=jnp.asarray(offset))
+        stats["paths_extended"] = n_ext
+    rpathzip.save_zipped(outdir / "paths.npz", rbg, edges, plen, offset,
+                         extra={"n_edges": np.int64(rbg.n_edges)})
+    stats["placed_perc"] = float((plen > 0).mean()) * 100 if n else 0.0
+    ebcx = rindex.edge_barcodes(edges, plen, rs.bc, rbg.n_edges)
+    np.savez_compressed(outdir / "ebcx.npz", values=ebcx.values, offsets=ebcx.offsets,
+                        counts=rindex.edge_read_counts(edges, plen, rbg.n_edges))
+    return rp, stats
+
+
+def assert_npz_equal(want, got):
+    """Two .npz files hold the same arrays, names, dtypes and values."""
+    zw, zg = np.load(want), np.load(got)
+    assert sorted(zw.files) == sorted(zg.files)
+    for k in zw.files:
+        assert zw[k].dtype == zg[k].dtype and np.array_equal(zw[k], zg[k]), (got, k)
+
+
+def assert_stage_paths_match(pl, out, rp, rrp, rstats, ref_out, n):
+    """The port's stage_paths output (ReadPaths, paths.npz, ebcx.npz, stats
+    in the reference's order) equals reference_stage_paths'."""
+    p = convert.readpaths_to_numpy(rp)
+    for f, a, b in zip(p._fields, rrp, p):
+        assert np.array_equal(np.asarray(a)[:n], b[:n]), f
+    for name in ("paths.npz", "ebcx.npz"):
+        assert_npz_equal(ref_out / name, out / name)
+    for k, v in rstats.items():
+        assert pl.stats.get(k) == v, k
+    names = [k for k in json.loads((out / "all_stats.json").read_text())
+             if k in ("paths_rescued", "paths_extended", "placed_perc")]
+    assert names == list(rstats)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     rs = skill_readset()
     rt = rbuild.trim_table(rcount.count_readset(rs))
     rbg = rgraph.from_device(rbuild.build_graph(rt), rt)
-    rrp = rpather.path_readset(rbg, rs)
+    ref_out = tmp_path_factory.mktemp("ref")
+    rrp, rstats = reference_stage_paths(rbg, rs, ref_out)
     out = tmp_path_factory.mktemp("slice")
     kernels.reset_launch_counts()
     pl = Pipeline(out, device="cpu")
     table, bg, rp = pl.run(rs)
-    return rs, (rt, rbg, rrp), (pl, table, bg, rp), out
+    return rs, (rt, rbg, rrp, rstats, ref_out), (pl, table, bg, rp), out
 
 
 def test_kmers_npz_matches_reference(runs):
-    rs, (rt, _, _), _, out = runs
+    rs, (rt, *_), _, out = runs
     z = np.load(out / "kmers.npz")
     ref = dict(
         words=np.stack([np.asarray(w) for w in rt.words], axis=-1),
@@ -76,7 +133,7 @@ def test_kmers_npz_matches_reference(runs):
 
 
 def test_graph_npz_matches_reference(runs, tmp_path):
-    _, (_, rbg, _), _, out = runs
+    _, (_, rbg, *_), _, out = runs
     rbg.save(tmp_path / "ref.npz")
     zr, zp = np.load(tmp_path / "ref.npz"), np.load(out / "graph.npz")
     assert zr.files == zp.files
@@ -85,25 +142,23 @@ def test_graph_npz_matches_reference(runs, tmp_path):
 
 
 def test_read_paths_match_reference(runs):
-    rs, (_, _, rrp), (_, _, _, rp), _ = runs
-    p = convert.readpaths_to_numpy(rp)
-    n = rs.n_reads
-    for f, a, b in zip(p._fields, rrp, p):
-        assert np.array_equal(np.asarray(a)[:n], b[:n]), f
+    """ReadPaths after rescue and extend, paths.npz and ebcx.npz."""
+    rs, (_, _, rrp, rstats, ref_out), (pl, _, _, rp), out = runs
+    assert_stage_paths_match(pl, out, rp, rrp, rstats, ref_out, rs.n_reads)
+    assert rstats.get("paths_extended", 0) > 0
 
 
 def test_stats_match_reference(runs):
-    rs, (rt, rbg, rrp), (pl, _, _, _), out = runs
+    rs, (rt, rbg, _, rstats, _), (pl, _, _, _), out = runs
     lens = rbg.edges.lengths()
     canonical = np.arange(rbg.n_edges) <= rbg.inv
-    plen = np.asarray(rrp.path_len)[: rs.n_reads]
     expect = {
         "kmers_distinct": int(rt.n_valid),
         "n_edges": rbg.n_edges,
         "edge_N50": n50(lens[canonical]),
         "assembly_checksum": rbg.checksum(),
-        "placed_perc": float((plen > 0).mean()) * 100,
         "nreads": rs.n_reads,
+        **rstats,
     }
     saved = json.loads((out / "all_stats.json").read_text())
     for k, v in expect.items():
@@ -112,6 +167,7 @@ def test_stats_match_reference(runs):
     for st in ("ingest", "count", "graph", "paths"):
         assert pl.stats.get(f"etime_{st}_h") > 0
         assert pl.stage_records[st]["wall_s"] > 0
+    assert pl.stage_records["paths"]["rescue_s"] >= 0 and pl.stage_records["paths"]["extend_s"] > 0
 
 
 def test_cpu_run_launches_no_kernel(runs):

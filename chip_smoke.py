@@ -28,14 +28,30 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      the blocked mixed count and the blocked general pather;
   5. the slice at one block — a 2 Mb diploid genome (het 0.001), 600
      barcodes x 10 molecules x 50 kb, ~600k 150 bp reads, ~45x — through
-     Pipeline(device="cuda"): per-stage wall time and peak memory,
+     Pipeline(device="cuda").run(): per-stage wall time and peak memory,
      kmers_distinct, n_edges, placed_perc >= 95 (rescued reads counted),
-     the rescue's and extend's host seconds, paths.npz and ebcx.npz
-     written, BaseGraph.validate(), a strictly ascending unique table, and
-     every kernel launched (launch counters reset just before the run);
-  6. the same at genome scale (pipeline/datasets.py GENOME: 10 Mb, 3,000
-     barcodes, ~3M reads, ~450M bases, ~45x), which takes the blocked
-     count (>= 2 blocks spilled, one device merge) and the blocked pather;
+     the rescue's and extend's host seconds, paths.npz, ebcx.npz,
+     summary.json and assembly.raw.fasta.gz written (its records nonempty
+     and A/C/G/T only; records, bases, N50), BaseGraph.validate(), a
+     strictly ascending unique table (kmers.npz reloaded by a resumed
+     Pipeline), and every kernel launched (launch counters reset just
+     before the run);
+  6. [fastq run], the main path: the genome (pipeline/datasets.py GENOME:
+     10 Mb, 3,000 barcodes, ~3M reads, ~450M bases, ~45x) written as 10x
+     FASTQs in LANES bcl2fastq-named lanes by the port's write_sim_fastqs
+     (one process a lane), found by discover_input_fastqs, checked by
+     preflight and read by ingest_10x_fastqs (walls); then the checks of 5
+     through run(), which takes the blocked count (>= 2 blocks spilled,
+     one device merge) and the blocked pather; then stage_patch on the
+     pather's paths (paths.npz reused by a resumed Pipeline, no launch):
+     gap pairs and closures, the patched graph's edges, the re-path's
+     placed_perc, the rebuild's launches (each kernel > 0 when anything
+     closed).  [resume]: run() again on the same outdir with resume=True:
+     no launch in the count and graph stages, no K3 or K2 in the paths
+     stage, the same FASTA bytes.  [patch kernels]: K1-K4 against their
+     twins at the rebuild count's shapes (one strand of every edge plus the
+     closures, unbarcoded, min_freq 1, min_read_len K).  The genome's
+     later phases use this FASTQ-ingested readset;
   7. the genome's count three more ways (count stage only): (a) its merge
      cut into >= 4 kmer-range partitions on the card, blocks spilled to a
      directory; (b) the same call again, every block resumed from the
@@ -43,7 +59,7 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      that leaves the card less free memory than a 96M-position block's
      count peak but more than a 48M one's (both measured first), so it
      runs out of memory and halves its block size.  Each table equals the
-     genome phase's bit for bit; wall, device peak, partitions, launches;
+     fastq run's bit for bit; wall, device peak, partitions, launches;
      the genome's first block counted from prepare_reads and from the
      packed inputs it replaced (a yardstick): identical raw tables, walls;
      then the general pather, with and without the tail cut, equal to the
@@ -53,7 +69,7 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      (every position a sort row, the sorted stream ending in one sentinel
      run; K3 with (1, 0) and with the filter, then alone on the real rows,
      the sentinel run and its last half; K2 on both K3 outputs); then
-     through Pipeline(device="cuda") with the checks of 6: the blocked
+     through Pipeline(device="cuda").run() with the checks of 5: the blocked
      mixed count and the blocked general pather; its count again at
      48M-position blocks, equal to the Pipeline's table; its paths at
      96M-position blocks, then beside a ballast between one 96M- and one
@@ -75,8 +91,10 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      3 keys) and at its graph's chain-order shape (2 keys, two nodes a
      kmer), and the merge's peak device bytes per raw row;
  12. no module of the JAX package (or jax) was imported.
-Then one JSON line with the kernels (launches from the genome phase;
-mixed_launches from the mixed genome's; mixed_* times from 8), the
+Then one JSON line with the kernels (launches from the main path, the
+fastq run's run() and stage_patch; patch_launches from its rebuild;
+mixed_launches from the mixed genome's run(); mixed_* times from 8,
+patch_* times from 6), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}.  Exits
 nonzero without a GPU.
 """
@@ -84,6 +102,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -482,7 +501,7 @@ def phase_small_slice(torch, rs, tag="small", block_positions=None):
         with tempfile.TemporaryDirectory() as d:
             for dev in ("cuda", "cpu"):
                 pl = Pipeline(f"{d}/{dev}", device=dev)
-                table, bg, rp = pl.run(rs)
+                table, bg, rp = pl.run_slice(rs)
                 records[dev] = pl.stage_records
                 npz = {name: dict(np.load(f"{d}/{dev}/{name}"))
                        for name in ("paths.npz", "ebcx.npz")}
@@ -524,22 +543,39 @@ def phase_small_slice(torch, rs, tag="small", block_positions=None):
 PATHS_STATS = ("paths_rescued", "paths_extended", "placed_perc")
 
 
-def phase_slice(torch, rs, tag, min_blocks=None):
-    """The slice through Pipeline(device="cuda") with the launch counters
-    reset just before and read just after; returns (launches, count stage
-    record, host table, BaseGraph)."""
+def check_fasta(path, tag):
+    """assembly.raw.fasta.gz: nonempty records of A/C/G/T only -> (records,
+    bases, N50 of the record lengths)."""
+    from supernova_tpu_torch.out import fasta as fout
+    from supernova_tpu_torch.stats.logger import n50
+
+    recs = fout.read_fasta(path)
+    check(recs, f"{tag}: no FASTA records")
+    lens = [len(seq) for _, seq in recs]
+    check(min(lens) > 0, f"{tag}: an empty FASTA record")
+    check(set("".join(seq for _, seq in recs)) <= set("ACGT"), f"{tag}: FASTA not 2-bit clean")
+    return len(recs), sum(lens), n50(lens)
+
+
+def phase_slice(torch, rs, tag, outdir, min_blocks=None):
+    """The slice through Pipeline(device="cuda").run() with the launch
+    counters reset just before and read just after: the FASTA, summary.json
+    and the npz files written and checked; the table is kmers.npz reloaded
+    by a resumed Pipeline.  Returns (launches, count stage record, host
+    table, BaseGraph, Pipeline)."""
+    from supernova_tpu_torch import convert
     from supernova_tpu_torch.core import kmer_codec as kc
     from supernova_tpu_torch.ops import kernels
     from supernova_tpu_torch.pipeline.run import Pipeline
 
-    with tempfile.TemporaryDirectory() as outdir:
-        kernels.reset_launch_counts()
-        pl = Pipeline(outdir, device="cuda")
-        table, bg, rp = pl.run(rs)
-        torch.cuda.synchronize()
-        launches = kernels.launch_counts()
-        files = {name: os.path.getsize(f"{outdir}/{name}")
-                 for name in ("paths.npz", "ebcx.npz") if os.path.exists(f"{outdir}/{name}")}
+    kernels.reset_launch_counts()
+    pl = Pipeline(outdir, device="cuda")
+    bg, fasta = pl.run(rs)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    files = {name: os.path.getsize(f"{outdir}/{name}")
+             for name in ("paths.npz", "ebcx.npz", "summary.json", "assembly.raw.fasta.gz")
+             if os.path.exists(f"{outdir}/{name}")}
     for name, rec in pl.stage_records.items():
         print(f"[{tag}] stage {name}: wall {rec['wall_s']:.3f} s, "
               f"peak device memory {rec['peak_gb']:.3f} GiB")
@@ -554,24 +590,269 @@ def phase_slice(torch, rs, tag, min_blocks=None):
               f"{crec.get('blocks', 1)} count blocks < {min_blocks}")
     kd, ne, placed = (pl.stats.get(k) for k in ("kmers_distinct", "n_edges", "placed_perc"))
     print(f"[{tag}] reads {rs.n_reads}, bases {int(rs.offsets[-1])}: kmers_distinct {kd}, "
-          f"n_edges {ne}, placed_perc {placed:.3f}")
+          f"n_edges {ne}, placed_perc {placed:.3f}, est_coverage {pl.stats.get('est_coverage')}")
     print(f"[{tag}] paths: rescued {pl.stats.get('paths_rescued')} reads in "
           f"{prec['rescue_s']:.3f} s (host), extended {pl.stats.get('paths_extended')} in "
           f"{prec['extend_s']:.3f} s (host); written {files} (bytes)")
+    nrec, nbases, ctg_n50 = check_fasta(fasta, tag)
+    print(f"[{tag}] assembly.raw.fasta.gz: {nrec} records, {nbases} bases, contig N50 {ctg_n50}")
     print(f"[{tag}] launches {launches}")
     check(placed >= 95.0, f"placed_perc {placed} < 95")
-    check(set(files) == {"paths.npz", "ebcx.npz"}, f"{tag}: paths.npz/ebcx.npz not written")
+    check(len(files) == 4, f"{tag}: written {sorted(files)}")
+    table = Pipeline(outdir, device="cuda", resume=True).stage_count(rs)
     n = int(table.n_valid)
+    check(n == kd, f"{tag}: kmers.npz holds {n} kmers, the count logged {kd}")
     w = table.words
     head, tail = kc.W3(w.a[: n - 1], w.b[: n - 1], w.c[: n - 1]), kc.W3(w.a[1:n], w.b[1:n], w.c[1:n])
     check(bool(kc.lex_lt(head, tail).all()), "table not strictly ascending over n_valid")
     bg.validate()
-    print(f"[{tag}] BaseGraph.validate() passed; table strictly ascending over {n} rows")
+    print(f"[{tag}] BaseGraph.validate() passed; table (kmers.npz reloaded) strictly "
+          f"ascending over {n} rows")
     for name, c in launches.items():
         check(c > 0, f"kernel {name} was not launched by the main path")
-    from supernova_tpu_torch import convert
+    return launches, crec, convert.table_to_numpy(table), bg, pl
 
-    return launches, crec, convert.table_to_numpy(table), bg
+
+# 10x lanes the genome's FASTQs are written as, one process each
+LANES = 8
+_LANE_READS = None  # the SimReads the forked lane writers read
+
+
+def _write_lane(job):
+    """One lane of _LANE_READS as bcl2fastq-named R1/R2 FASTQs."""
+    import pathlib
+
+    from supernova_tpu_torch.ingest.tenx import write_sim_fastqs
+    from supernova_tpu_torch.sim.genome import SimReads
+
+    lane, lo, hi, root = job
+    part = SimReads(**{f: getattr(_LANE_READS, f)[lo:hi] for f in (
+        "r1", "q1", "r2", "q2", "barcode", "bc_qual", "truth_pos", "truth_hap")})
+    r1, r2 = write_sim_fastqs(part, f"{root}/lane{lane}")
+    for mate, path in (("R1", r1), ("R2", r2)):
+        pathlib.Path(path).rename(f"{root}/GENOME_S1_L{lane:03d}_{mate}_001.fastq.gz")
+
+
+def write_lanes(reads, root):
+    """The SimReads as LANES lanes of 10x FASTQs (the repo's
+    write_sim_fastqs on contiguous slices of the pairs), written by forked
+    processes that touch no CUDA state."""
+    import multiprocessing
+
+    global _LANE_READS
+    n = reads.n_pairs()
+    cuts = [n * k // LANES for k in range(LANES + 1)]
+    os.makedirs(root, exist_ok=True)
+    _LANE_READS = reads
+    try:
+        with multiprocessing.get_context("fork").Pool(LANES) as pool:
+            pool.map(_write_lane, [(k + 1, cuts[k], cuts[k + 1], root) for k in range(LANES)])
+    finally:
+        _LANE_READS = None
+
+
+def fasta_bytes(path):
+    import gzip
+
+    with gzip.open(path, "rb") as f:
+        return f.read()
+
+
+def phase_fastq_run(torch, dev, outdir):
+    """The genome from 10x FASTQs through the port's own ingest, then
+    Pipeline(device="cuda").run() and stage_patch: the main path.  Returns
+    (launches of run() + stage_patch, count record, host table, BaseGraph,
+    ReadSet, the patch stage's record)."""
+    import numpy as np
+    from supernova_tpu_torch.ingest.barcodes import Whitelist
+    from supernova_tpu_torch.ingest.discovery import discover_input_fastqs
+    from supernova_tpu_torch.ingest.tenx import ingest_10x_fastqs
+    from supernova_tpu_torch.ops import kernels
+    from supernova_tpu_torch.pipeline import datasets
+    from supernova_tpu_torch.pipeline.preflight import preflight
+    from supernova_tpu_torch.pipeline.run import Pipeline
+
+    t0 = time.perf_counter()
+    reads, wl = datasets.simulate_reads(datasets.GENOME, datasets.GENOME_SEED)
+    print(f"[fastq run] genome: {reads.n_pairs()} read pairs simulated in "
+          f"{time.perf_counter() - t0:.1f} s")
+    fq = f"{outdir}/fastqs"
+    t0 = time.perf_counter()
+    write_lanes(reads, fq)
+    write_s = time.perf_counter() - t0
+    del reads
+    size = sum(os.path.getsize(f"{fq}/{f}") for f in os.listdir(fq) if f.endswith(".gz"))
+    t0 = time.perf_counter()
+    found = discover_input_fastqs(fq)
+    check(found["mode"] == "ILMN_BCL2FASTQ" and len(found["r1"]) == LANES,
+          f"fastq run: discovery found {found['mode']}, {len(found['r1'])} R1 files")
+    pf = preflight(found["r1"], found["r2"], len(wl))
+    check(pf.ok, f"fastq run: preflight errors {pf.errors}")
+    rs = ingest_10x_fastqs(found["r1"], found["r2"], Whitelist.from_codes(wl))
+    ingest_s = time.perf_counter() - t0
+    lens = rs.lengths()
+    print(f"[fastq run] FASTQs: {LANES} lanes, {size} bytes gzipped, written in {write_s:.3f} s "
+          f"({LANES} processes); discovery + preflight (warnings {pf.warnings}) + "
+          f"ingest_10x_fastqs {ingest_s:.3f} s -> {rs.n_reads} reads, {int(rs.offsets[-1])} "
+          f"bases, R1 {int(lens[0::2].min())}-{int(lens[0::2].max())} bases, R2 "
+          f"{int(lens[1::2].min())}-{int(lens[1::2].max())} bases, "
+          f"{100 * float((rs.bc > 0).mean()):.3f}% of reads on a whitelist barcode")
+    shutil.rmtree(fq)
+    asm = f"{outdir}/asm"
+    launches, crec, table, bg, pl = phase_slice(torch, rs, "fastq run", asm, min_blocks=2)
+
+    # the pather's output for stage_patch: paths.npz, reused by a resumed
+    # Pipeline (same reads, same graph), with no launch
+    kernels.reset_launch_counts()
+    rp = Pipeline(asm, device="cuda", resume=True).stage_paths(bg, rs)
+    check(sum(kernels.launch_counts().values()) == 0, "fastq run: paths.npz was not reused")
+    kernels.reset_launch_counts()
+    bg2, rp2 = pl._timed("patch", pl.stage_patch, bg, rp, rs)
+    torch.cuda.synchronize()
+    patch_launches = kernels.launch_counts()
+    rec = pl.stage_records["patch"]
+    pairs, closed = pl.stats.get("gap_pairs"), pl.stats.get("gap_closures")
+    print(f"[fastq run] stage patch: wall {rec['wall_s']:.3f} s, peak device memory "
+          f"{rec['peak_gb']:.3f} GiB; gap_pairs {pairs}, gap_closures {closed}; find "
+          f"{pl.stats.get('etime_patch_find_s'):.3f} s, close "
+          f"{pl.stats.get('etime_patch_close_s'):.3f} s, rebuild "
+          f"{pl.stats.get('etime_patch_rebuild_s')} s, re-path "
+          f"{pl.stats.get('etime_patch_repath_s')} s (host clock)")
+    if closed:
+        bg2.validate()
+        placed = pl.stats.get("placed_perc")
+        print(f"[fastq run] patched graph: {bg2.n_edges} edges (was {bg.n_edges}); re-path "
+              f"placed_perc {placed:.3f}; rebuild launches {rec['rebuild_launches']}; the "
+              f"stage's {patch_launches}")
+        check(os.path.exists(f"{asm}/graph.patched.npz") and os.path.exists(f"{asm}/closures.npz"),
+              "fastq run: graph.patched.npz / closures.npz not written")
+        for name, c in rec["rebuild_launches"].items():
+            check(c > 0, f"kernel {name} was not launched by the patch rebuild")
+        check(placed >= 95.0, f"re-path placed_perc {placed} < 95")
+    else:
+        print("[fastq run] nothing closed: the patch stage returned its inputs, no rebuild")
+    total = {k: launches[k] + patch_launches[k] for k in launches}
+    return total, crec, table, bg, rs, rec
+
+
+def phase_resume(torch, rs, outdir):
+    """The fastq run's outdir again with resume=True: the count and graph
+    stages reload kmers.npz and graph.npz (no launch), the paths stage runs
+    no K3 and no K2, and the FASTA's bytes are the same."""
+    from supernova_tpu_torch.ops import kernels
+    from supernova_tpu_torch.pipeline.run import Pipeline
+
+    asm = f"{outdir}/asm"
+    want = fasta_bytes(f"{asm}/assembly.raw.fasta.gz")
+    kernels.reset_launch_counts()
+    pl = Pipeline(asm, device="cuda", resume=True)
+    t0 = time.perf_counter()
+    _, fasta = pl.run(rs)
+    wall = time.perf_counter() - t0
+    for name, rec in pl.stage_records.items():
+        print(f"[resume] stage {name}: wall {rec['wall_s']:.3f} s, peak device memory "
+              f"{rec['peak_gb']:.3f} GiB, launches {rec['launches']}")
+    recs = pl.stage_records
+    for st in ("count", "graph"):
+        check(sum(recs[st]["launches"].values()) == 0, f"resume: the {st} stage launched kernels")
+    for st in ("count", "graph", "paths"):
+        for name in ("run_reduce", "compact"):
+            check(recs[st]["launches"][name] == 0, f"resume: the {st} stage launched {name}")
+    check(fasta_bytes(fasta) == want, "resume: the FASTA differs")
+    print(f"[resume] run() {wall:.3f} s: kmers.npz and graph.npz reloaded, no K3 or K2 in the "
+          f"count, graph and paths stages; assembly.raw.fasta.gz identical ({len(want)} bytes "
+          "decompressed)")
+
+
+def phase_kernels_patch(torch, dev, bg, outdir, res, save_s):
+    """The patch rebuild's steps timed one by one (patch_readset, count,
+    build_graph, from_device; save_s: the stage's graph.patched.npz write),
+    then K1/K4/K3/K2 against their plain twins at the shapes
+    the rebuild's count gives them: one strand of every edge plus the
+    closures (closures.npz), unbarcoded, of 0 to thousands of bases,
+    min_freq 1 and min_read_len K, every position a sort row.  Adds
+    patch_* keys to the kernels' entries in `res`."""
+    import numpy as np
+    from supernova_tpu_torch.asm import patch as apatch
+    from supernova_tpu_torch.core.kmer_codec import K
+    from supernova_tpu_torch.dbg import build as dbuild
+    from supernova_tpu_torch.dbg import graph as dgraph
+    from supernova_tpu_torch.kmer import count as kcount
+    from supernova_tpu_torch.ops.kernels import kmer_extract as k1
+    from supernova_tpu_torch.ops.kernels import run_reduce as k3
+
+    path = f"{outdir}/asm/closures.npz"
+    closures = []
+    if os.path.exists(path):
+        z = np.load(path)
+        closures = [z["values"][a:b] for a, b in zip(z["offsets"][:-1], z["offsets"][1:])]
+    t0 = time.perf_counter()
+    prs = apatch.patch_readset(bg, closures)
+    reads_s = time.perf_counter() - t0
+    lens = prs.lengths()
+    check(int(prs.offsets[-1]) <= kcount.BLOCK_POSITIONS, "patch kernels: the rebuild is blocked")
+    # where the rebuild's wall goes: insert_patches' steps, one at a time
+    table, count_s, count_peak, count_launches = measured(
+        torch, lambda: dbuild.trim_table(kcount.count_readset(prs, dev, min_freq=1,
+                                                             min_read_len=K)))
+    dg, build_s, build_peak, build_launches = measured(torch, lambda: dbuild.build_graph(table))
+    t0 = time.perf_counter()
+    bg2 = dgraph.from_device(dg, table)
+    host_s = time.perf_counter() - t0
+    print(f"[patch kernels] the rebuild's steps: patch_readset {reads_s:.3f} s (host), count "
+          f"{count_s:.3f} s ({count_peak:.3f} GiB, {count_launches}), build_graph {build_s:.3f} s "
+          f"({build_peak:.3f} GiB, {build_launches}), from_device {host_s:.3f} s (host); "
+          f"{bg2.n_edges} edges; the stage wrote graph.patched.npz in {save_s:.3f} s (host)")
+    del table, dg, bg2
+    inp = kcount.prepare_reads(prs, dev)
+    codes, n = inp["codes_ext"], inp["pos_read"].shape[0]
+    print(f"[patch kernels] the rebuild's reads: {prs.n_reads} ({len(closures)} closures), "
+          f"{int(prs.offsets[-1])} bases, {int(lens.min())}-{int(lens.max())} bases a read, "
+          f"unbarcoded; {n} positions")
+    got = k1.sliding_words_cuda(codes, n)
+    ref = k1.sliding_words_plain(codes, n)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)), "K1 differs from plain (patch)")
+    res["kmer_extract"].update(
+        patch_shape=f"{n} positions", patch_max_abs_err=max_abs_err(torch, zip(got, ref)),
+        patch_ms=median_ms(torch, lambda: k1.sliding_words_cuda(codes, n)),
+        patch_plain_ms=median_ms(torch, lambda: k1.sliding_words_plain(codes, n)),
+        patch_bound_ms=bound_ms(codes.numel() * 4 + n * 3 * 8))
+    print_kernel("kmer_extract (patch rebuild)", mixed_view(res["kmer_extract"], "patch"))
+    del got, ref
+
+    canon, pk = kcount.occurrence_rows(inp["codes_ext"], inp["pos_read"], inp["glen_pos"],
+                                       inp["bc_pos"], inp["uniform_rl"], min_read_len=K)
+    del inp, codes
+    rows = pk.shape[0]
+    r, perm = check_sort(torch, (*canon, pk), f"{rows} rows x 4 keys (patch rebuild)")
+    res["sort"].update({f"patch_{k}": r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                     "bound_ms", "library_ms")})
+    ws, pk = canon.gather(perm), pk[perm]
+    del canon, perm
+    mf, mb = 1, kcount.MIN_BC  # the rebuild's filter (count_readset(min_freq=1))
+    got = k3.run_reduce_cuda(ws.a, ws.b, ws.c, pk, mf, mb)
+    ref, plain = once_ms(torch, lambda: k3.run_reduce_plain(ws.a, ws.b, ws.c, pk, mf, mb))
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)), "K3 differs from plain (patch)")
+    sent = k3.SENTINEL
+    n_real = int(((ws.a != sent) | (ws.b != sent) | (ws.c != sent)).sum())
+    res["run_reduce"].update(
+        patch_shape=f"{rows} rows ({n_real} real + a sentinel run of {rows - n_real}), "
+                    f"({mf}, {mb})",
+        patch_max_abs_err=max_abs_err(torch, zip(got, ref)),
+        patch_ms=median_ms(torch, lambda: k3.run_reduce_cuda(ws.a, ws.b, ws.c, pk, mf, mb)),
+        patch_plain_ms=plain, patch_bound_ms=bound_ms(rows * (4 * 8 + 1 + 4 + 4)),
+        patch_sentinel_run_ms=median_ms(torch, lambda: k3.run_reduce_cuda(
+            ws.a[n_real:], ws.b[n_real:], ws.c[n_real:], pk[n_real:], mf, mb)))
+    print_kernel("run_reduce (patch rebuild)", mixed_view(res["run_reduce"], "patch"))
+    print(f"[kernels] run_reduce (patch rebuild): the sentinel run alone "
+          f"{res['run_reduce']['patch_sentinel_run_ms']:.3f} ms")
+    del ref
+    keep, count, stats = got
+    r = check_compact(torch, keep, (ws.a, ws.b, ws.c, count, stats), "patch rebuild")
+    res["compact"].update({f"patch_{k}": r[k] for k in (
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "fill_ms",
+        "fill_plain_ms", "fill_bound_ms")})
 
 
 def same_table(want, got, label):
@@ -624,7 +905,7 @@ def block_peak_gib(torch, rs, max_positions, dev):
 
 def phase_genome_count(torch, rs, want, raw_rows, dev):
     """The genome's count partitioned + spilled, resumed, and OOM-halved:
-    each table equals the genome phase's (`want`, on the host)."""
+    each table equals the fastq run's (`want`, on the host)."""
     import gc
 
     from supernova_tpu_torch import convert
@@ -1072,15 +1353,17 @@ def main() -> int:
     phase_small_slice(torch, rs_small)
     phase_small_slice(torch, datasets.r1_trimmed(rs_small), "small mixed", block_positions=300_000)
     del rs_small
-    phase_slice(torch, rs_full, "full")
+    with tempfile.TemporaryDirectory() as d:
+        phase_slice(torch, rs_full, "full", d)
     del rs_full
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    rs_genome = datasets.simulate(datasets.GENOME, datasets.GENOME_SEED)
-    print(f"[data] genome: {rs_genome.n_reads} reads, {int(rs_genome.offsets[-1])} bases "
-          f"simulated in {time.perf_counter() - t0:.1f} s")
-    launches, crec, table, bg = phase_slice(torch, rs_genome, "genome", min_blocks=2)
+    with tempfile.TemporaryDirectory() as d:
+        launches, crec, table, bg, rs_genome, patch_rec = phase_fastq_run(torch, dev, d)
+        torch.cuda.empty_cache()
+        phase_resume(torch, rs_genome, d)
+        torch.cuda.empty_cache()
+        phase_kernels_patch(torch, dev, bg, d, kres, patch_rec.get("save_s", 0.0))
     torch.cuda.empty_cache()
     phase_genome_count(torch, rs_genome, table, crec["raw_rows"], dev)
     phase_block_prep(torch, rs_genome, dev)
@@ -1092,7 +1375,9 @@ def main() -> int:
           f"reads, {int(rs_mixed.offsets[-1])} bases")
     phase_kernels_mixed(torch, rs_mixed, dev, kres)
     torch.cuda.empty_cache()
-    launches_mixed, _, table_mixed, bg_mixed = phase_slice(torch, rs_mixed, "mixed", min_blocks=2)
+    with tempfile.TemporaryDirectory() as d:
+        launches_mixed, _, table_mixed, bg_mixed, _ = phase_slice(torch, rs_mixed, "mixed", d,
+                                                                  min_blocks=2)
     torch.cuda.empty_cache()
     phase_mixed_count(torch, rs_mixed, table_mixed, dev)
     phase_mixed_paths(torch, bg_mixed, rs_mixed, dev)
@@ -1114,6 +1399,7 @@ def main() -> int:
              launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
              library_ms=r.get("library_ms"), mixed_launches=launches_mixed[name],
+             patch_launches=patch_rec.get("rebuild_launches", {}).get(name, 0),
              **{k: v for k, v in r.items() if k not in COMMON_KEYS})
         for name, r in kres.items()
     ]}))

@@ -54,7 +54,6 @@ MIN_FREQ = 3
 MIN_BC = 2
 BC_IGNORED = -1  # occurrences whose barcode is untracked
 BC_FIELD_IGNORED = 0x3FFFFF  # 22-bit barcode field; all-ones = "ignored"
-MIN_READ_LEN = K + 1  # good length a read needs to contribute kmers
 BASE_BUCKET = 16384  # flat-base padding of mixed-length readsets
 READ_BUCKET = 1024  # read-count padding
 # flat bases one count block holds: the reference's unit of work
@@ -91,11 +90,13 @@ def rev4(mask):
     return ((mask & 1) << 3) | ((mask & 2) << 1) | ((mask & 4) >> 1) | ((mask & 8) >> 3)
 
 
-def extract_occurrences(codes_ext, pos_read, glen_pos, bc_pos):
+def extract_occurrences(codes_ext, pos_read, glen_pos, bc_pos, min_read_len: int = K + 1):
     """Per-position canonical kmer occurrences (the Kmerizer::map phase).
 
     codes_ext: (NB + >=K,) int32 codes, zero tail; pos_read/glen_pos/bc_pos:
-    (NB,) per-position read id, good length and barcode.
+    (NB,) per-position read id, good length and barcode.  Reads below
+    min_read_len good bases contribute nothing; the patch rebuild passes K
+    so that single-kmer edges survive.
     -> (canon W3 with sentinel at invalid rows, bc, lm, rm, valid)."""
     nb = pos_read.shape[0]
     dev = pos_read.device
@@ -107,7 +108,7 @@ def extract_occurrences(codes_ext, pos_read, glen_pos, bc_pos):
     start = torch.cummax(torch.where(read_first, p, 0), 0).values
     pir = p - start  # position in read
     glen = glen_pos.to(torch.int64)
-    valid = (pir + K <= glen) & (glen >= MIN_READ_LEN)
+    valid = (pir + K <= glen) & (glen >= min_read_len)
 
     codes = codes_ext.to(torch.int64)
     pred = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), codes[: nb - 1]])
@@ -175,7 +176,8 @@ def reduce_occurrences(canon: W3, bc, lm, rm, valid, min_freq: int = MIN_FREQ,
     return _reduce_packed(canon, pack_occurrence_attrs(bc, lm, rm, valid), min_freq, min_bc)
 
 
-def occurrence_rows(codes_ext, pos_read, glen_pos, bc_pos, uniform_rl: int | None = None):
+def occurrence_rows(codes_ext, pos_read, glen_pos, bc_pos, uniform_rl: int | None = None,
+                    min_read_len: int = K + 1):
     """The sort rows of one block: (canonical words, packed attributes) of
     every position, invalid rows holding the sentinel.
 
@@ -183,7 +185,8 @@ def occurrence_rows(codes_ext, pos_read, glen_pos, bc_pos, uniform_rl: int | Non
     this length, so the last K-1 positions of each block are cut before the
     sort (~30% of the rows at rl=150).  Mixed-length reads keep every
     position as a row."""
-    canon, bc, lm, rm, valid = extract_occurrences(codes_ext, pos_read, glen_pos, bc_pos)
+    canon, bc, lm, rm, valid = extract_occurrences(codes_ext, pos_read, glen_pos, bc_pos,
+                                                   min_read_len)
     pk = pack_occurrence_attrs(bc, lm, rm, valid)
     if uniform_rl is not None:
         a_, b_, c_, pk = uniform_tail_cut(uniform_rl, canon.a, canon.b, canon.c, pk)
@@ -192,9 +195,10 @@ def occurrence_rows(codes_ext, pos_read, glen_pos, bc_pos, uniform_rl: int | Non
 
 
 def count_kmers(codes_ext, pos_read, glen_pos, bc_pos, min_freq: int = MIN_FREQ,
-                min_bc: int = MIN_BC, uniform_rl: int | None = None) -> KmerTable:
+                min_bc: int = MIN_BC, min_read_len: int = K + 1,
+                uniform_rl: int | None = None) -> KmerTable:
     """Count + filter canonical 48-mers over all reads of one block."""
-    canon, pk = occurrence_rows(codes_ext, pos_read, glen_pos, bc_pos, uniform_rl)
+    canon, pk = occurrence_rows(codes_ext, pos_read, glen_pos, bc_pos, uniform_rl, min_read_len)
     return _reduce_packed(canon, pk, min_freq, min_bc)
 
 
@@ -408,12 +412,12 @@ def _reduce_occurrences_raw(canon: W3, packed) -> RawBlockTable:
 
 
 def count_block_raw(codes_ext, pos_read, glen_pos, bc_pos,
-                    uniform_rl: int | None = None) -> RawBlockTable:
+                    uniform_rl: int | None = None, min_read_len: int = K + 1) -> RawBlockTable:
     """One block of the blocked count from per-position inputs
     (prepare_reads): extract (+ the tail cut for uniform reads) and the raw
     reduce, K1, K4, K3 and K2 on the card."""
     return _reduce_occurrences_raw(*occurrence_rows(codes_ext, pos_read, glen_pos, bc_pos,
-                                                    uniform_rl))
+                                                    uniform_rl, min_read_len))
 
 
 def split_readset_blocks(rs, max_positions: int):
@@ -627,8 +631,9 @@ def merge_blocks(blocks, device, min_freq: int, min_bc: int, merge_rows: int | N
 
 
 def count_readset_blocked(rs, device, min_freq: int | None = None, min_bc: int | None = None,
-                          max_positions: int | None = None, merge_rows: int | None = None,
-                          spill_dir=None, info: dict | None = None) -> KmerTable:
+                          min_read_len: int = K + 1, max_positions: int | None = None,
+                          merge_rows: int | None = None, spill_dir=None,
+                          info: dict | None = None) -> KmerTable:
     """Blocked count: per-block unfiltered raw tables (distinct-kmer scale),
     spilled block by block (kmer/spill.py), then merge_blocks and the
     adjacency recompute on the card.  Bit-identical to the single-block
@@ -655,7 +660,7 @@ def count_readset_blocked(rs, device, min_freq: int | None = None, min_bc: int |
     def count_block(b):
         p = prepare_reads(b, device, pad_to_positions=pad_pos, pad_to_reads=pad_rd)
         return count_block_raw(p["codes_ext"], p["pos_read"], p["glen_pos"], p["bc_pos"],
-                               p["uniform_rl"])
+                               p["uniform_rl"], min_read_len)
 
     with spill.SpillDir(spill_dir, meta) as sd:
         pending = [i for i in range(len(blocks)) if not sd.done(i)]
@@ -753,7 +758,8 @@ def halving_retry(what: str, device: torch.device, info: dict | None, attempt):
 
 
 def count_readset(rs, device, min_freq: int | None = None, min_bc: int | None = None,
-                  info: dict | None = None, spill_dir=None) -> KmerTable:
+                  min_read_len: int = K + 1, info: dict | None = None,
+                  spill_dir=None) -> KmerTable:
     """ReadSet -> filtered, adjacency-true KmerTable on `device`.
 
     Readsets above BLOCK_POSITIONS bases take the blocked count (`info`
@@ -768,10 +774,12 @@ def count_readset(rs, device, min_freq: int | None = None, min_bc: int | None = 
     min_bc = MIN_BC if min_bc is None else min_bc
     if int(rs.offsets[-1]) > BLOCK_POSITIONS:
         return halving_retry("count", device, info, lambda max_pos: count_readset_blocked(
-            rs, device, min_freq, min_bc, max_positions=max_pos, spill_dir=spill_dir, info=info))
+            rs, device, min_freq, min_bc, min_read_len, max_positions=max_pos,
+            spill_dir=spill_dir, info=info))
     inp = prepare_reads(rs, device)
     table = count_kmers(
         inp["codes_ext"], inp["pos_read"], inp["glen_pos"], inp["bc_pos"],
-        min_freq=min_freq, min_bc=min_bc, uniform_rl=inp["uniform_rl"],
+        min_freq=min_freq, min_bc=min_bc, min_read_len=min_read_len,
+        uniform_rl=inp["uniform_rl"],
     )
     return recompute_adjacencies(trim_table(table))

@@ -1,0 +1,99 @@
+"""Native (C++) host-side FASTQ decoder, loaded via ctypes.
+
+The port's own copy of the FASTQ half of supernova_tpu/native/__init__.py
+(load_native, decode_fastq_bytes; fastq_decode.cpp unchanged), kept equal
+to it by tests/test_torch_hostcopies.py.  One change: the shared library is
+built into supernova_tpu_torch/_build/, keyed on the source hash, beside the
+port's CUDA kernels.  The pure-Python path is the reference's host decoder
+for machines without g++, not a device fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import subprocess
+from pathlib import Path
+
+import numpy as np
+
+_SRC = Path(__file__).parent / "fastq_decode.cpp"
+_LIB = None
+_TRIED = False
+
+
+def _build_dir() -> Path:
+    d = Path(__file__).resolve().parents[1] / "_build"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def load_native():
+    """-> ctypes CDLL or None (falls back to Python)."""
+    global _LIB, _TRIED
+    if _LIB is not None or _TRIED:
+        return _LIB
+    _TRIED = True
+    try:
+        src = _SRC.read_bytes()
+        tag = hashlib.sha1(src).hexdigest()[:12]
+        so = _build_dir() / f"fastq_decode_{tag}.so"
+        if not so.exists():
+            subprocess.run(
+                [
+                    "g++", "-O3", "-march=native", "-shared", "-fPIC",
+                    str(_SRC), "-o", str(so),
+                ],
+                check=True,
+                capture_output=True,
+            )
+        lib = ctypes.CDLL(str(so))
+        lib.fastq_scan.restype = ctypes.c_int
+        lib.fastq_scan.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.fastq_decode.restype = ctypes.c_int
+        lib.fastq_decode.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            np.ctypeslib.ndpointer(np.uint8), np.ctypeslib.ndpointer(np.uint8),
+            np.ctypeslib.ndpointer(np.int64), ctypes.c_int64,
+        ]
+        _LIB = lib
+    except Exception:
+        _LIB = None
+    return _LIB
+
+
+def decode_fastq_bytes(data: bytes):
+    """Decompressed FASTQ bytes -> (codes u8, quals u8 phred, offsets i64).
+    Native fast path with Python fallback."""
+    lib = load_native()
+    if lib is not None:
+        nrec = ctypes.c_int64(0)
+        nbase = ctypes.c_int64(0)
+        rc = lib.fastq_scan(data, len(data), ctypes.byref(nrec), ctypes.byref(nbase))
+        if rc == 0:
+            codes = np.empty(nbase.value, np.uint8)
+            quals = np.empty(nbase.value, np.uint8)
+            offsets = np.empty(nrec.value + 1, np.int64)
+            rc = lib.fastq_decode(data, len(data), codes, quals, offsets, nrec.value)
+            if rc == 0:
+                return codes, quals, offsets
+        raise ValueError(f"malformed FASTQ (native rc={rc})")
+    # pure python fallback
+    from ..core import dna
+    from ..ingest.fastq import qual_str_to_phred
+
+    codes_l, quals_l = [], []
+    lines = data.decode().splitlines()
+    for i in range(0, len(lines) - 3, 4):
+        codes_l.append(dna.seq_to_codes(lines[i + 1]))
+        quals_l.append(qual_str_to_phred(lines[i + 3]))
+    lens = np.array([len(c) for c in codes_l], np.int64)
+    offsets = np.zeros(len(codes_l) + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return (
+        np.concatenate(codes_l) if codes_l else np.zeros(0, np.uint8),
+        np.concatenate(quals_l) if quals_l else np.zeros(0, np.uint8),
+        offsets,
+    )

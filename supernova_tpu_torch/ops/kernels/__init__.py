@@ -25,6 +25,11 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def launches_since(before: dict) -> dict:
+    """Launches a wrapper made since launch_counts() returned `before`."""
+    return {name: fn.launches - before[name] for name, fn in WRAPPERS.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0

@@ -41,8 +41,9 @@ DATASETS = {"GENOME": (GENOME, GENOME_SEED), "FULL": (FULL, FULL_SEED),
             "SMALL": (SMALL, SMALL_SEED)}
 
 
-def simulate(cfg: dict, seed: int):
-    """Linked reads of a random diploid genome shaped by `cfg` -> ReadSet."""
+def simulate_reads(cfg: dict, seed: int):
+    """Linked reads of a random diploid genome shaped by `cfg`, as the
+    sequencer gives them -> (SimReads, whitelist codes)."""
     rng = np.random.default_rng(seed)
     g = sim.random_genome(rng, cfg["genome_len"])
     _, hb = sim.diploidize(rng, g, cfg["het"])
@@ -54,7 +55,13 @@ def simulate(cfg: dict, seed: int):
         coverage_per_molecule=cfg["coverage_per_molecule"],
         error_rate=cfg["error_rate"], bc_error_rate=cfg["bc_error_rate"],
     )
-    return ingest_sim(reads, wl)
+    return reads, wl
+
+
+def simulate(cfg: dict, seed: int):
+    """Linked reads of a random diploid genome shaped by `cfg` -> ReadSet
+    (ingested in memory)."""
+    return ingest_sim(*simulate_reads(cfg, seed))
 
 
 def r1_trimmed(rs: ReadSet, skip: int = R1_SKIP) -> ReadSet:

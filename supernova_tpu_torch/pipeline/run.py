@@ -1,22 +1,26 @@
-"""The port's Pipeline: the base-graph slice of supernova_tpu's main path.
+"""The port's Pipeline: supernova_tpu's Pipeline.run on one device, and
+its patch stage.
 
-    ReadSet -> stage_ingest -> stage_count -> stage_graph -> stage_paths
-            -> (KmerTable, BaseGraph, ReadPaths)
+    ReadSet -> stage_ingest -> stage_count (under the coverage guard)
+            -> stage_graph -> stage_paths -> stage_fasta("raw") -> finalize
+            -> (BaseGraph, assembly.raw.fasta.gz)
 
-as supernova_tpu/pipeline/run.py runs it on one device.  Readsets above
-one count block take the blocked count and pather; the count stage's
-record then holds its block, row, partition, spill and OOM-retry counts.
-stage_count and stage_graph write kmers.npz,
-stats/histogram_kmer_count.json and graph.npz
-in the reference's formats and log kmers_distinct, n_edges, edge_N50 and
-assembly_checksum.  stage_paths runs the pather, then the reference's
-qual-tolerant rescue (align/rescue.py) and extend_paths (asm/bads.py) on
-the host, writes paths.npz (align/pathzip.py) and ebcx.npz
-(align/index.py), and logs paths_rescued, paths_extended and placed_perc
-as the reference does.  all_stats.json is rewritten after every stage.
+as supernova_tpu/pipeline/run.py's Pipeline.run runs it, each stage under
+the port's stage timer; stage_patch (dead-end pairs -> closures -> the
+graph rebuilt on the device -> re-path) is run_full's next stage and is
+called by the caller after run().  Every stage writes the reference's
+checkpoint (reads.npz, kmers.npz, graph.npz, paths.npz, ebcx.npz,
+closures.npz, graph.patched.npz) in its format, and with resume=True
+reloads it instead of recomputing.  Readsets above one count block take
+the blocked count and pather; the count stage's record then holds its
+block, row, partition, spill and OOM-retry counts, and every stage's
+record the kernel launches made in it.  finalize() writes summary.json,
+summary_cs.csv, stats/summary.txt and alerts.json; all_stats.json is
+rewritten after every stage.
 """
 from __future__ import annotations
 
+import gc
 import logging
 import shutil
 import time
@@ -30,12 +34,17 @@ from ..align import index as pindex
 from ..align import pather, pathzip
 from ..align import rescue as arescue
 from ..asm import bads as abads
+from ..asm import dups as adups
+from ..asm import patch as apatch
 from ..core.device import resolve_device
+from ..core.kmer_codec import W3
 from ..dbg import build as dbuild
 from ..dbg import graph as dgraph
-from ..ingest.ingest import valid_barcode_fraction
+from ..ingest.ingest import subsample_pairs, valid_barcode_fraction
 from ..ingest.reads import ReadSet
 from ..kmer import count as kcount
+from ..ops import kernels
+from ..out import fasta as fout
 from ..stats import gems as sgems
 from ..stats import histograms as hist
 from ..stats.logger import StatLogger, n50
@@ -43,40 +52,106 @@ from ..stats.trace import stage
 
 log = logging.getLogger("supernova_tpu_torch")
 
+# Flat base count above which the ReadSet re-homes onto disk memmaps
+# (reads.lazy/), as the reference's (supernova_tpu/pipeline/run.py:40-43).
+LAZY_READS_MIN_BASES = 2_000_000_000
+# the reference's other FASTA flavors, which need the supergraph, scaffold
+# and phase stages
+LATER_FLAVORS = ("megabubbles", "pseudohap", "pseudohap2", "efasta")
+
 
 class Pipeline:
-    def __init__(self, outdir: str | Path, device: str | torch.device):
+    def __init__(self, outdir: str | Path, device: str | torch.device, resume: bool = False,
+                 downsample: dict | None = None, auto_downsample: bool = True):
+        """device: where the count, build, pather and patch rebuild run (no
+        default: "cuda" on the card, "cpu" for the plain twins).
+        resume, downsample, auto_downsample: the reference's (run.py:47-98).
+        resume reloads each stage's checkpoint; downsample is
+        {"target_reads": N} or {"gigabases": G}; auto_downsample subsamples
+        to 56x and recounts when the spectrum's coverage estimate exceeds
+        90x."""
         self.device = resolve_device(device)
         self.outdir = Path(outdir)
         self.outdir.mkdir(parents=True, exist_ok=True)
         self.stats = StatLogger.load(self.outdir / "all_stats.json")
+        self.resume = resume
+        self.downsample = downsample
+        self.auto_downsample = auto_downsample
         self.stage_records: dict[str, dict] = {}
+        self._t_start = time.time()
 
     def _timed(self, name, fn, *a, **kw):
-        """Run one stage under the stage timer and persist the stats."""
+        """Run one stage under the stage timer, note the kernel launches
+        made in it (the record's "launches") and persist the stats."""
         rec = self.stage_records.setdefault(name, {})
+        before = kernels.launch_counts()
         with stage(name, self.device, self.stats, rec):
             out = fn(*a, **kw)
+        rec["launches"] = kernels.launches_since(before)
         self.stats.dump_json(self.outdir / "all_stats.json")
         return out
 
-    def run(self, rs: ReadSet):
-        """The whole slice, each stage timed -> (table, bg, rp)."""
+    def run(self, rs: ReadSet, flavor: str = "raw"):
+        """The reference's Pipeline.run, each stage timed -> (BaseGraph,
+        path of the FASTA).  Raises RuntimeError on preflight exit alerts."""
+        self._fasta_path(flavor)  # refuse another flavor before any work
+        _, bg, _ = self.run_slice(rs)
+        path = self._timed("fasta", self.stage_fasta, bg, flavor)
+        self.finalize()
+        return bg, path
+
+    def run_slice(self, rs: ReadSet):
+        """run()'s stages up to the FASTA -> (KmerTable, BaseGraph,
+        ReadPaths), for callers that check the count's table or the
+        pather's own ReadPaths (tests/, chip_smoke.py)."""
         rs = self._timed("ingest", self.stage_ingest, rs)
-        table = self._timed("count", self.stage_count, rs)
+        exits = self.stats.exit_alerts()
+        if exits:
+            self.finalize()
+            raise RuntimeError(f"preflight exit alerts: {exits}")
+        table, rs = self._timed("count", self._count_with_cov_guard, rs)
         bg = self._timed("graph", self.stage_graph, table)
-        rp = self._timed("paths", self.stage_paths, bg, rs)
-        return table, bg, rp
+        return table, bg, self._timed("paths", self.stage_paths, bg, rs)
+
+    def finalize(self):
+        self.stats.log(
+            "etime_h", (time.time() - self._t_start) / 3600.0,
+            "total elapsed hours", cs=True,
+        )
+        self.stats.dump_json(self.outdir / "all_stats.json")
+        (self.outdir / "stats").mkdir(exist_ok=True)
+        self.stats.dump_text(self.outdir / "stats" / "summary.txt")
+        self.stats.dump_json(self.outdir / "summary.json", cs_only=True)
+        self.stats.dump_csv(self.outdir / "summary_cs.csv")
+        self.stats.dump_alerts(self.outdir / "alerts.json")
 
     # ---------------------------------------------------------------- stages
 
     def stage_ingest(self, rs: ReadSet) -> ReadSet:
-        """Checkpoint the reads and log the input stats (reference
-        run.py:114-223, without user downsampling and the disk-memmap
-        re-homing above 2 Gb, which one count block never reaches)."""
+        """User downsampling, the reads.npz checkpoint, the re-homing onto
+        disk memmaps above LAZY_READS_MIN_BASES and the input stats
+        (reference run.py:114-223)."""
+        if self.downsample:
+            frac = 1.0
+            if self.downsample.get("target_reads"):
+                frac = self.downsample["target_reads"] / max(rs.n_reads, 1)
+            elif self.downsample.get("gigabases"):
+                frac = self.downsample["gigabases"] / max(float(len(rs.codes)) / 1e9, 1e-12)
+            if frac < 1.0:
+                rs = subsample_pairs(rs, frac)
+                self.stats.log("downsample_frac", frac, "user downsample fraction",
+                               stage="ingest")
         ck = self.outdir / "reads.npz"
         if not ck.exists():
             rs.save(ck)
+        # host RSS for the rest of the run bounded by the touched working
+        # set, not the read total (the reference's VirtualMasterVec analogue)
+        if len(rs.codes) > LAZY_READS_MIN_BASES and not rs.is_lazy:
+            lz = self.outdir / "reads.lazy"
+            if not (lz / "codes.npy").exists():
+                rs.save_lazy(lz)
+            rs = ReadSet.load_lazy(lz)
+            self.stats.log("reads_lazy", 1, "bases/quals memmap-backed", stage="ingest")
         self.stats.log("nreads", rs.n_reads, "number of reads", cs=True, stage="ingest")
         self.stats.log(
             "mean_read_len", float(np.mean(rs.lengths())) if rs.n_reads else 0.0,
@@ -131,7 +206,15 @@ class Pipeline:
         """Count into kmers.npz and the spectrum histogram.  A blocked count
         spills its blocks to count_spill/ (a killed run resumes there; the
         reference's run.py:254-258) and its counts go into the stage's
-        record; the spills go once kmers.npz is written."""
+        record; the spills go once kmers.npz is written.  On resume,
+        kmers.npz (the port's or the reference's) reloads onto the device."""
+        ck = self.outdir / "kmers.npz"
+        if self.resume and ck.exists():
+            z = np.load(ck)
+            w = z["words"]
+            return convert.table_from_numpy(kcount.KmerTable(
+                W3(w[:, 0], w[:, 1], w[:, 2]), z["count"], z["nbc"], z["left_mask"],
+                z["right_mask"], z["n_valid"]), self.device)
         spill_dir = self.outdir / "count_spill"
         table = dbuild.trim_table(kcount.count_readset(
             rs, self.device, info=self.stage_records.setdefault("count", {}),
@@ -146,7 +229,7 @@ class Pipeline:
             "48-mer multiplicity spectrum", spec["bins"], spec["counts"],
         )
         np.savez_compressed(
-            self.outdir / "kmers.npz",
+            ck,
             words=np.stack(host.words, axis=-1),
             count=host.count,
             nbc=host.nbc,
@@ -157,9 +240,40 @@ class Pipeline:
         shutil.rmtree(spill_dir, ignore_errors=True)
         return table
 
+    def _count_with_cov_guard(self, rs: ReadSet):
+        """Count, estimate coverage from the spectrum, and (auto mode)
+        downsample + recount past the >90x alarm (reference run.py:396-436)
+        -> (table, rs)."""
+        table = self.stage_count(rs)
+        rl = float(np.mean(rs.lengths())) if rs.n_reads else 150.0
+        cov, gsize = kcount.estimate_coverage(table, rl)
+        if cov:
+            self.stats.log("est_coverage", cov, "kmer-spectrum coverage estimate",
+                           cs=True, stage="count")
+            if gsize:
+                self.stats.log("est_genome_size", gsize,
+                               "kmer-spectrum genome size estimate", stage="count")
+            # the estimate is only trustworthy with a real spectrum
+            if self.auto_downsample and cov > 90.0 and int(table.n_valid) >= 50_000:
+                frac = 56.0 / cov
+                self.stats.log("downsample_frac_auto", frac,
+                               "auto downsample to 56x (coverage alarm >90x)", stage="count")
+                rs = subsample_pairs(rs, frac)
+                (self.outdir / "kmers.npz").unlink(missing_ok=True)
+                # free the full-coverage table before the recount
+                table = None
+                gc.collect()
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+                table = self.stage_count(rs)
+        return table, rs
+
     def stage_graph(self, table: kcount.KmerTable) -> dgraph.BaseGraph:
+        ck = self.outdir / "graph.npz"
+        if self.resume and ck.exists():
+            return dgraph.BaseGraph.load(ck)
         bg = dgraph.from_device(dbuild.build_graph(table), table)
-        bg.save(self.outdir / "graph.npz")
+        bg.save(ck)
         lens = bg.edges.lengths()
         canonical = np.arange(bg.n_edges) <= bg.inv  # one per rc pair
         self.stats.log("n_edges", bg.n_edges, "unipath edges (fwd+rc)", stage="graph")
@@ -169,9 +283,23 @@ class Pipeline:
 
     def stage_paths(self, bg: dgraph.BaseGraph, rs: ReadSet) -> pather.ReadPaths:
         """Pather, rescue, extend, paths.npz, placed_perc and ebcx.npz, step
-        for step as the reference's run.py:578-626.  The stage's record
-        holds the blocked pather's counts and the host seconds of rescue
-        (rescue_s) and extend (extend_s)."""
+        for step as the reference's run.py:537-626.  On resume, paths.npz
+        is reused when it holds these reads' paths on a graph of as many
+        edges (ebcx.npz is rewritten).  The stage's record holds the blocked
+        pather's counts and the host seconds of rescue (rescue_s) and
+        extend (extend_s)."""
+        ck = self.outdir / "paths.npz"
+        if self.resume and ck.exists():
+            z = np.load(ck)
+            # the same reads on a graph of as many edges
+            if ("n_edges" in z and int(z["n_edges"]) == bg.n_edges
+                    and len(z["zip_plen"]) == rs.n_reads):
+                edges, plen, offset = pathzip.load_zipped(z, bg)
+                t = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64)).to(self.device)
+                zero = torch.zeros(rs.n_reads, dtype=torch.int64, device=self.device)
+                rp = pather.ReadPaths(t(edges), t(plen), t(offset), zero, zero.to(torch.bool))
+                self._write_ebcx(edges, plen, rs, bg)
+                return rp
         rec = self.stage_records.setdefault("paths", {})
         rp = pather.path_readset(bg, rs, self.device, info=rec)
         n = rs.n_reads
@@ -188,11 +316,80 @@ class Pipeline:
             t = lambda a: torch.from_numpy(a.astype(np.int64)).to(self.device)
             rp = rp._replace(edges=t(edges), path_len=t(plen), offset=t(offset))
             self.stats.log("paths_extended", n_ext, stage="paths")
-        pathzip.save_zipped(self.outdir / "paths.npz", bg, edges, plen, offset,
+        pathzip.save_zipped(ck, bg, edges, plen, offset,
                             extra={"n_edges": np.int64(bg.n_edges)})
         placed = float((plen > 0).mean()) if n else 0.0
         self.stats.log("placed_perc", placed * 100, "% reads pathed", stage="paths")
+        self._write_ebcx(edges, plen, rs, bg)
+        return rp
+
+    def _write_ebcx(self, edges, plen, rs: ReadSet, bg: dgraph.BaseGraph):
+        """ebcx.npz: the barcodes of the reads on each edge, and the reads'
+        count an edge."""
         ebcx = pindex.edge_barcodes(edges, plen, rs.bc, bg.n_edges)
         np.savez_compressed(self.outdir / "ebcx.npz", values=ebcx.values, offsets=ebcx.offsets,
                             counts=pindex.edge_read_counts(edges, plen, bg.n_edges))
-        return rp
+
+    def _fasta_path(self, flavor: str) -> Path:
+        if flavor in LATER_FLAVORS:
+            raise NotImplementedError(
+                f"FASTA flavor {flavor!r} needs the supergraph, scaffold and phase stages, "
+                "not yet ported (ROADMAP A8); this port writes the raw flavor")
+        if flavor != "raw":
+            raise ValueError(f"unknown flavor {flavor}")
+        return self.outdir / f"assembly.{flavor}.fasta.gz"
+
+    def stage_fasta(self, bg: dgraph.BaseGraph, flavor: str = "raw") -> Path:
+        """assembly.raw.fasta.gz: one record per rc pair of edges (reference
+        run.py:1731-1754, its raw flavor)."""
+        out = self._fasta_path(flavor)
+        fout.write_raw_fasta(bg, out)
+        return out
+
+    def stage_patch(self, bg: dgraph.BaseGraph, rp: pather.ReadPaths, rs: ReadSet):
+        """The reference's stage_patch (run.py:629-677), step for step:
+        mark_dups -> find_edge_pairs -> close_gaps on the host, then the
+        graph rebuilt from edges + closures on the device (K1-K4) and the
+        reads re-pathed -> (BaseGraph, ReadPaths), the inputs unchanged when
+        nothing closes.  On resume it re-enters from graph.patched.npz.  The
+        stage's record gets the rebuild's kernel launches
+        (rebuild_launches) and the host seconds of the graph.patched.npz
+        write (save_s)."""
+        ck = self.outdir / "graph.patched.npz"
+        if self.resume and ck.exists():
+            bg2 = dgraph.BaseGraph.load(ck)
+            return bg2, self.stage_paths(bg2, rs)
+        n = rs.n_reads
+        edges, plen, offset = (x[:n] for x in convert.readpaths_to_numpy(rp)[:3])
+        t0 = time.time()
+        dup = adups.mark_dups(edges, plen, offset, rs.bc)
+        pairs = apatch.find_edge_pairs(bg, edges, plen, dup)
+        t1 = time.time()
+        closures = apatch.close_gaps(bg, rs, pairs)
+        t2 = time.time()
+        self.stats.log("gap_pairs", len(pairs), "dead-end edge pairs", stage="patch")
+        self.stats.log("gap_closures", len(closures), "gaps closed", stage="patch")
+        self.stats.log("etime_patch_find_s", t1 - t0, "patch: pair discovery wall", stage="patch")
+        self.stats.log("etime_patch_close_s", t2 - t1, "patch: closure consensus wall",
+                       stage="patch")
+        if not closures:
+            return bg, rp
+        np.savez_compressed(
+            self.outdir / "closures.npz",
+            values=np.concatenate(closures),
+            offsets=np.concatenate([[0], np.cumsum([len(c) for c in closures])]).astype(np.int64),
+        )
+        before = kernels.launch_counts()
+        bg2 = apatch.insert_patches(bg, closures, self.device)
+        rec = self.stage_records.setdefault("patch", {})
+        rec["rebuild_launches"] = kernels.launches_since(before)
+        t_save = time.time()
+        bg2.save(ck)
+        t3 = time.time()
+        rec["save_s"] = t3 - t_save
+        self.stats.log("etime_patch_rebuild_s", t3 - t2, "patch: graph rebuild wall",
+                       stage="patch")
+        rp2 = self.stage_paths(bg2, rs)
+        self.stats.log("etime_patch_repath_s", time.time() - t3, "patch: re-path wall",
+                       stage="patch")
+        return bg2, rp2

@@ -178,12 +178,12 @@ def test_blocked_pather_matches_reference_and_single_block(rs, tmp_path):
 
 
 def test_pipeline_blocked_equals_unblocked(rs, tmp_path, monkeypatch):
-    """Pipeline.run with blocks forced writes the same kmers.npz and
+    """The Pipeline's stages with blocks forced write the same kmers.npz and
     graph.npz as the one-block run, and the same ReadPaths[:n_reads]."""
-    _, _, rp1 = Pipeline(tmp_path / "one", device="cpu").run(rs)
+    _, _, rp1 = Pipeline(tmp_path / "one", device="cpu").run_slice(rs)
     monkeypatch.setattr(kcount, "BLOCK_POSITIONS", MAX_POS)
     pl = Pipeline(tmp_path / "blocked", device="cpu")
-    _, _, rp2 = pl.run(rs)
+    _, _, rp2 = pl.run_slice(rs)
     rec = pl.stage_records["count"]
     assert rec["blocks"] >= 3 and rec["spilled_blocks"] == rec["blocks"]
     assert rec["partitions"] == 1 and rec["oom_retries"] == 0
@@ -211,7 +211,7 @@ def test_blocked_paths_raise_where_not_ported(rs, port_blocked, tmp_path, monkey
     monkeypatch.setattr(kcount, "BLOCK_POSITIONS", MAX_POS)
     monkeypatch.setattr(rcount, "BLOCK_POSITIONS", MAX_POS)
     pl = Pipeline(tmp_path / "port", device="cpu")
-    table, _, rp = pl.run(mixed)
+    table, _, rp = pl.run_slice(mixed)
     assert pl.stage_records["count"]["blocks"] >= 3 and pl.stage_records["paths"]["blocks"] >= 3
     assert pl.stage_records["paths"]["oom_retries"] == 0
     rt = rbuild.trim_table(rcount.count_readset(mixed))

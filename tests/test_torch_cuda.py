@@ -289,9 +289,9 @@ def test_slice_cuda_equals_cpu(dev, tmp_path):
         bc_error_rate=0.02,
     ), wl)
     kernels.reset_launch_counts()
-    tg, _, rg = Pipeline(tmp_path / "cuda", device="cuda").run(rs)
+    tg, _, rg = Pipeline(tmp_path / "cuda", device="cuda").run_slice(rs)
     assert all(c > 0 for c in kernels.launch_counts().values())
-    tc, _, rc = Pipeline(tmp_path / "cpu", device="cpu").run(rs)
+    tc, _, rc = Pipeline(tmp_path / "cpu", device="cpu").run_slice(rs)
     a, b = convert.table_to_numpy(tg), convert.table_to_numpy(tc)
     assert a.n_valid == b.n_valid
     for x, y in zip((*a.words, *a[1:5]), (*b.words, *b[1:5])):
@@ -324,10 +324,10 @@ def test_blocked_slice_cuda_equals_cpu(dev, tmp_path, monkeypatch):
     monkeypatch.setattr(kcount, "BLOCK_POSITIONS", 100_000)
     kernels.reset_launch_counts()
     pg = Pipeline(tmp_path / "cuda", device="cuda")
-    _, _, rg = pg.run(rs)
+    _, _, rg = pg.run_slice(rs)
     assert all(c > 0 for c in kernels.launch_counts().values())
     assert pg.stage_records["count"]["blocks"] >= 3
-    _, _, rc = Pipeline(tmp_path / "cpu", device="cpu").run(rs)
+    _, _, rc = Pipeline(tmp_path / "cpu", device="cpu").run_slice(rs)
     for name in ("kmers.npz", "graph.npz"):
         zg, zc = np.load(tmp_path / "cuda" / name), np.load(tmp_path / "cpu" / name)
         for k in zc.files:
@@ -375,11 +375,11 @@ def test_mixed_slice_cuda_equals_cpu(dev, tmp_path, monkeypatch):
     monkeypatch.setattr(kcount, "BLOCK_POSITIONS", 100_000)
     kernels.reset_launch_counts()
     pg = Pipeline(tmp_path / "cuda", device="cuda")
-    tg, _, rg = pg.run(rs)
+    tg, _, rg = pg.run_slice(rs)
     assert all(c > 0 for c in kernels.launch_counts().values())
     assert pg.stage_records["count"]["blocks"] >= 3 and pg.stage_records["paths"]["blocks"] >= 3
     pc = Pipeline(tmp_path / "cpu", device="cpu")
-    _, _, rc = pc.run(rs)
+    _, _, rc = pc.run_slice(rs)
     for name in ("kmers.npz", "graph.npz", "paths.npz", "ebcx.npz"):
         zg, zc = np.load(tmp_path / "cuda" / name), np.load(tmp_path / "cpu" / name)
         assert zg.files == zc.files
@@ -392,3 +392,61 @@ def test_mixed_slice_cuda_equals_cpu(dev, tmp_path, monkeypatch):
     whole, chunked = dbuild.build_links(tg), dbuild.build_links(tg, chunk=1001)
     for a, b in zip(whole, chunked):
         assert torch.equal(a, b)
+
+
+def hole_readset(rng):
+    """tests/test_patch.py's readset, from the port's copies of the
+    simulator and build_readset: mate pairs tiling a 3 kb genome except
+    across a hole at 1400-1480, and one long read over the hole."""
+    from supernova_tpu_torch.core import dna
+    from supernova_tpu_torch.ingest.reads import build_readset
+
+    g = sim.random_genome(rng, 3000)
+    hole_lo, hole_hi = 1400, 1480
+    read_len, insert = 150, 500
+    reads, quals = [], []
+    overlaps = lambda a, b: not (b <= hole_lo or a >= hole_hi)
+    for s in range(0, len(g) - insert, 17):
+        r1, r2 = (s, s + read_len), (s + insert - read_len, s + insert)
+        if overlaps(*r1) or overlaps(*r2):
+            continue
+        reads += [g[r1[0] : r1[1]].copy(), dna.revcomp(g[r2[0] : r2[1]]).copy()]
+        quals += [np.full(read_len, 37, np.uint8)] * 2
+    reads.append(g[hole_lo - 70 : hole_hi + 150].copy())
+    quals.append(np.full(70 + (hole_hi - hole_lo) + 150, 37, np.uint8))
+    reads.append(dna.revcomp(g[2000:2150]).copy())
+    quals.append(np.full(read_len, 37, np.uint8))
+    return build_readset(reads, quals, np.zeros(len(reads) // 2, np.int32),
+                         n_barcodes=0, barcoded=False)
+
+
+def test_patch_rebuild_cuda_equals_cpu(dev):
+    """The patch rebuild's count (unbarcoded reads of 0 to ~3,000 bases,
+    min_freq=1, min_read_len=K) on the card equals its run on the CPU,
+    table for table, and so does the rebuilt graph, with K1-K4 launched."""
+    from supernova_tpu_torch.align import pather
+    from supernova_tpu_torch.asm import patch as apatch
+    from supernova_tpu_torch.core.kmer_codec import K
+    from supernova_tpu_torch.dbg import build as dbuild
+    from supernova_tpu_torch.dbg import graph as dgraph
+
+    rs = hole_readset(np.random.default_rng(0))
+    table = dbuild.trim_table(kcount.count_readset(rs, "cpu", min_freq=2), pad_multiple=256)
+    bg = dgraph.from_device(dbuild.build_graph(table), table)
+    edges, plen, _ = (x[: rs.n_reads] for x in convert.readpaths_to_numpy(
+        pather.path_readset(bg, rs, "cpu"))[:3])
+    closures = apatch.close_gaps(bg, rs, apatch.find_edge_pairs(bg, edges, plen, dup=None))
+    assert closures
+    prs = apatch.patch_readset(bg, closures)
+    kernels.reset_launch_counts()
+    got = convert.table_to_numpy(kcount.count_readset(prs, dev, min_freq=1, min_read_len=K))
+    assert all(c > 0 for c in kernels.launch_counts().values())
+    want = convert.table_to_numpy(kcount.count_readset(prs, "cpu", min_freq=1, min_read_len=K))
+    assert want.n_valid == got.n_valid
+    for x, y in zip((*want.words, *want[1:5]), (*got.words, *got[1:5])):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    bg_g, bg_c = apatch.insert_patches(bg, closures, dev), apatch.insert_patches(bg, closures, "cpu")
+    for f in ("inv", "from_v", "to_v", "is_circle", "kmer_words", "node_edge", "node_pos"):
+        assert np.array_equal(getattr(bg_g, f), getattr(bg_c, f)), f
+    assert np.array_equal(bg_g.edges.values, bg_c.edges.values)
+    assert np.array_equal(bg_g.edges.offsets, bg_c.edges.offsets)

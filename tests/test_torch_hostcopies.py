@@ -1,16 +1,28 @@
 """The port's copies of the JAX package's host modules (ingest, sim, core
 dna/ragged/pqvec, stats gems/histograms/logger, the feudal 2-bit packing,
-align rescue/pathzip/index, asm bads) against their originals: the same
-source apart from the note that names the original, and the same outputs
-on the same inputs."""
+align rescue/pathzip/index, asm bads/dups/stackster and patch's host half,
+out fasta, ingest fastq/tenx/discovery, pipeline preflight, the native FASTQ
+decoder) against their originals: the same source apart from the note that
+names the original, and the same outputs on the same inputs."""
+import gzip
 import inspect
 import json
+import shutil
 from pathlib import Path
 
 import numpy as np
 import pytest
 
 import supernova_tpu_torch.align.index as p_index
+import supernova_tpu_torch.asm.dups as p_dups
+import supernova_tpu_torch.asm.patch as p_patch
+import supernova_tpu_torch.asm.stackster as p_stackster
+import supernova_tpu_torch.ingest.discovery as p_discovery
+import supernova_tpu_torch.ingest.fastq as p_fastq
+import supernova_tpu_torch.ingest.tenx as p_tenx
+import supernova_tpu_torch.native as p_native
+import supernova_tpu_torch.out.fasta as p_fasta
+import supernova_tpu_torch.pipeline.preflight as p_preflight
 import supernova_tpu_torch.align.pathzip as p_pathzip
 import supernova_tpu_torch.align.rescue as p_rescue
 import supernova_tpu_torch.asm.bads as p_bads
@@ -27,7 +39,16 @@ from supernova_tpu.align import index as r_index
 from supernova_tpu.align import pather as r_pather
 from supernova_tpu.align import pathzip as r_pathzip
 from supernova_tpu.align import rescue as r_rescue
+from supernova_tpu import native as r_native
 from supernova_tpu.asm import bads as r_bads
+from supernova_tpu.asm import dups as r_dups
+from supernova_tpu.asm import patch as r_patch
+from supernova_tpu.asm import stackster as r_stackster
+from supernova_tpu.ingest import discovery as r_discovery
+from supernova_tpu.ingest import fastq as r_fastq
+from supernova_tpu.ingest import tenx as r_tenx
+from supernova_tpu.out import fasta as r_fasta
+from supernova_tpu.pipeline import preflight as r_preflight
 from supernova_tpu.core import dna as r_dna
 from supernova_tpu.core import pqvec as r_pqvec
 from supernova_tpu.core import ragged as r_ragged
@@ -48,17 +69,57 @@ REPO = Path(__file__).resolve().parents[1]
 COPIES = ["core/dna.py", "core/ragged.py", "core/pqvec.py", "ingest/reads.py",
           "ingest/ingest.py", "ingest/barcodes.py", "sim/genome.py", "stats/gems.py",
           "stats/histograms.py", "stats/logger.py", "align/rescue.py", "align/pathzip.py",
-          "align/index.py", "asm/bads.py"]
+          "align/index.py", "asm/bads.py", "out/fasta.py", "ingest/fastq.py", "ingest/tenx.py",
+          "ingest/discovery.py", "pipeline/preflight.py", "asm/dups.py", "asm/stackster.py"]
 
 
 @pytest.mark.parametrize("path", COPIES)
 def test_copy_is_the_original_source(path):
-    """Only the docstring paragraph naming the original was added."""
+    """Only the docstring paragraph naming the original was added, after a
+    blank line of the docstring."""
     orig = (REPO / "supernova_tpu" / path).read_text().split("\n")
     copy = (REPO / "supernova_tpu_torch" / path).read_text().split("\n")
-    note_end = copy.index("", 2)
-    assert "The port's own copy of" in " ".join(copy[2:note_end])
-    assert copy[:1] + copy[note_end:] == orig
+    start = next(i for i, line in enumerate(copy) if line.startswith("The port's own copy of"))
+    note_end = copy.index("", start)
+    assert copy[start - 1] == "" and f"supernova_tpu/{path}" in " ".join(copy[start:note_end])
+    assert copy[:start] + copy[note_end + 1:] == orig
+
+
+def same_sources(a, b, names):
+    for name in names:
+        assert inspect.getsource(getattr(a, name)) == inspect.getsource(getattr(b, name)), name
+
+
+def test_native_decoder_is_the_original():
+    """The same load_native and decode_fastq_bytes and the same C++ source;
+    only the build directory differs (the port's _build/).  The same
+    arrays from the same bytes, and the same refusal of a malformed file."""
+    same_sources(r_native, p_native, ("load_native", "decode_fastq_bytes"))
+    assert (REPO / "supernova_tpu_torch/native/fastq_decode.cpp").read_bytes() == (
+        REPO / "supernova_tpu/native/fastq_decode.cpp").read_bytes()
+    assert p_native.load_native() is not None
+    assert p_native._build_dir() == REPO / "supernova_tpu_torch" / "_build"
+    rng = np.random.default_rng(11)
+    recs = []
+    for i in range(60):
+        n = int(rng.integers(0, 200))
+        recs.append((f"r{i}", rng.integers(0, 4, n).astype(np.uint8),
+                     rng.integers(2, 41, n).astype(np.uint8)))
+    data = "".join(f"@{n}\n{r_dna.codes_to_seq(c)}\n+\n{r_fastq.phred_to_qual_str(q)}\n"
+                   for n, c, q in recs).encode()
+    for a, b in zip(r_native.decode_fastq_bytes(data), p_native.decode_fastq_bytes(data)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    for mod in (r_native, p_native):
+        with pytest.raises(ValueError):
+            mod.decode_fastq_bytes(b"not a fastq\nACGT\n")
+
+
+def test_patch_host_half_is_the_original():
+    """asm/patch.py apart from the rebuild (insert_patches, patch_graph and
+    patch_readset, which tests/test_torch_patch.py holds to the reference)."""
+    same_sources(r_patch, p_patch, ("GapPair", "find_edge_pairs", "_mini_dbg_walk", "close_gaps"))
+    for name in ("PATCH_K", "MIN_PAIR_SUPPORT", "MAX_GAP_WALK"):
+        assert getattr(r_patch, name) == getattr(p_patch, name)
 
 
 def test_feudal_packing_is_the_original():
@@ -238,3 +299,118 @@ def test_pathzip_and_index_outputs_match(placed, tmp_path):
     a = r_index.edge_read_counts(edges, plen, bg.n_edges)
     b = p_index.edge_read_counts(edges, plen, bg.n_edges)
     assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def fastqs(tmp_path_factory):
+    """One simulated 10x readset written as R1/R2 FASTQs by each package."""
+    d = tmp_path_factory.mktemp("fastq")
+    _, _, wl, reads = simulate(r_sim, 8)
+    ref = r_tenx.write_sim_fastqs(reads, d / "ref")
+    port = p_tenx.write_sim_fastqs(reads, d / "port")
+    return d, wl, ref, port
+
+
+def fastq_text(path):
+    with gzip.open(path, "rb") as f:
+        return f.read()
+
+
+def test_fastq_round_trip_matches(fastqs):
+    """write_sim_fastqs writes the same records; ingest_10x_fastqs reads them
+    into the same ReadSet, paired, capped at max_pairs, and interleaved."""
+    d, wl, ref, port = fastqs
+    for a, b in zip(ref, port):
+        assert fastq_text(a) == fastq_text(b)
+    wl_r = r_ingest.Whitelist.from_codes(wl)
+    wl_p = p_ingest.Whitelist.from_codes(wl)
+    cases = [dict(), dict(max_pairs=100)]
+    for kw in cases:
+        a = r_tenx.ingest_10x_fastqs([ref[0]], [ref[1]], wl_r, **kw)
+        b = p_tenx.ingest_10x_fastqs([port[0]], [port[1]], wl_p, **kw)
+        assert isinstance(b, p_reads.ReadSet) and b.n_reads > 0
+        for f in ("codes", "offsets", "quals", "bc", "bci", "barcoded"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert np.asarray(x).dtype == np.asarray(y).dtype and np.array_equal(x, y), (kw, f)
+    inter = d / "read-RA_si-ACGTACGT_lane-001-chunk-000.fastq.gz"
+    with gzip.open(port[0], "rt") as f1, gzip.open(port[1], "rt") as f2, gzip.open(inter, "wt") as o:
+        while True:
+            rec1, rec2 = [f1.readline() for _ in range(4)], [f2.readline() for _ in range(4)]
+            if not rec1[0]:
+                break
+            o.writelines(rec1 + rec2)
+    a = r_tenx.ingest_10x_fastqs([inter], [], wl_r, interleaved=True)
+    b = p_tenx.ingest_10x_fastqs([inter], [], wl_p, interleaved=True)
+    for f in ("codes", "offsets", "quals", "bc", "bci"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    rows = list(p_fastq.read_fastq(port[1]))[:3]
+    assert [r[0] for r in rows] == [r[0] for r in list(r_fastq.read_fastq(ref[1]))[:3]]
+    wl_txt = d / "wl.txt"
+    wl_txt.write_text("\n".join(r_dna.codes_to_seq(c) + "-1" for c in wl) + "\n")
+    assert np.array_equal(r_tenx.load_whitelist(wl_txt).packed, p_tenx.load_whitelist(wl_txt).packed)
+
+
+def test_discovery_and_preflight_match(fastqs, tmp_path):
+    """tests/test_discovery.py's layouts (bcl2fastq, two samples, an
+    interleaved RA file, sample-index filter) and preflight's verdicts
+    (good input, missing files, a degenerate whitelist, short reads)."""
+    _, wl, ref, _ = fastqs
+    layouts = {}
+    d = tmp_path / "bcl2fastq" / "proj"
+    d.mkdir(parents=True)
+    shutil.copy(ref[0], d / "mysample_S1_L001_R1_001.fastq.gz")
+    shutil.copy(ref[1], d / "mysample_S1_L001_R2_001.fastq.gz")
+    layouts["one"] = tmp_path / "bcl2fastq"
+    d = tmp_path / "two"
+    d.mkdir()
+    for s_ in ("a", "b"):
+        shutil.copy(ref[0], d / f"{s_}_S1_L001_R1_001.fastq.gz")
+        shutil.copy(ref[1], d / f"{s_}_S1_L001_R2_001.fastq.gz")
+    layouts["two"] = d
+    d = tmp_path / "ra"
+    d.mkdir()
+    for si in ("ACGTACGT", "ANNNNNNN"):
+        shutil.copy(ref[0], d / f"read-RA_si-{si}_lane-001-chunk-000.fastq.gz")
+    layouts["ra"] = d
+    for name, path in layouts.items():
+        assert r_discovery.detect_mode(path) == p_discovery.detect_mode(path), name
+        for kw in (dict(), dict(sample="a")):
+            try:
+                want = r_discovery.discover_input_fastqs(path, **kw)
+            except ValueError as e:
+                with pytest.raises(ValueError, match=str(e).split(":")[0]):
+                    p_discovery.discover_input_fastqs(path, **kw)
+                continue
+            assert p_discovery.discover_input_fastqs(path, **kw) == want, (name, kw)
+    assert r_discovery.find_bcl_processor(layouts["ra"], sample_index="ACGTACGT") == \
+        p_discovery.find_bcl_processor(layouts["ra"], sample_index="ACGTACGT")
+
+    short = tmp_path / "short_R2.fastq.gz"
+    r_fastq.write_fastq(short, [(f"r{i}", np.zeros(100, np.uint8), np.full(100, 30, np.uint8))
+                                for i in range(5)])
+    cases = [([str(ref[0])], [str(ref[1])], len(wl)), ([str(ref[0])], [], len(wl)),
+             ([str(tmp_path / "none.fq")], [str(ref[1])], 1), ([str(ref[0])], [str(short)], len(wl))]
+    for args in cases:
+        a, b = r_preflight.preflight(*args), p_preflight.preflight(*args)
+        assert (a.ok, a.errors, a.warnings) == (b.ok, b.errors, b.warnings), args
+    assert r_preflight.preflight(*cases[0]).ok and not r_preflight.preflight(*cases[3]).ok
+
+
+def test_fasta_dups_and_stackster_outputs_match(placed, tmp_path):
+    """write_raw_fasta / read_fasta, mark_dups / dup_fraction /
+    insert_size_stats, and stackster's consensus on the same inputs."""
+    rs, bg, edges, plen, offset = placed
+    for mod, name in ((r_fasta, "r"), (p_fasta, "p")):
+        mod.write_raw_fasta(bg, tmp_path / f"{name}.fasta.gz")
+    assert fastq_text(tmp_path / "r.fasta.gz") == fastq_text(tmp_path / "p.fasta.gz")
+    assert p_fasta.read_fasta(tmp_path / "p.fasta.gz") == r_fasta.read_fasta(tmp_path / "r.fasta.gz")
+    dup = r_dups.mark_dups(edges, plen, offset, rs.bc)
+    assert np.array_equal(dup, p_dups.mark_dups(edges, plen, offset, rs.bc))
+    assert r_dups.dup_fraction(dup) == p_dups.dup_fraction(dup)
+    assert r_dups.insert_size_stats(bg, edges, plen, offset) == p_dups.insert_size_stats(
+        bg, edges, plen, offset)
+    rng = np.random.default_rng(9)
+    bases = rng.integers(-1, 4, (30, 120)).astype(np.int8)
+    quals = rng.integers(0, 41, (30, 120)).astype(np.int16)
+    for a, b in zip(r_stackster.consensus(bases, quals), p_stackster.consensus(bases, quals)):
+        assert np.array_equal(a, b)

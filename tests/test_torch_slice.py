@@ -110,7 +110,7 @@ def runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("slice")
     kernels.reset_launch_counts()
     pl = Pipeline(out, device="cpu")
-    table, bg, rp = pl.run(rs)
+    table, bg, rp = pl.run_slice(rs)
     return rs, (rt, rbg, rrp, rstats, ref_out), (pl, table, bg, rp), out
 
 
@@ -182,19 +182,28 @@ def test_cuda_device_raises_without_a_card(tmp_path):
 
 
 def test_port_never_imports_jax():
-    """Importing the port and running a count, single-block and blocked,
+    """Importing the port, running a count, single-block and blocked, and
+    then 10x FASTQs through preflight, ingest, Pipeline.run and stage_patch
     leaves jax and every supernova_tpu module out of sys.modules (needs its
     own process: conftest imports jax and the JAX package)."""
     code = """
 import sys
+import tempfile
 import numpy as np
 from supernova_tpu_torch.sim import genome as sim
 from supernova_tpu_torch.ingest.reads import build_readset
+import supernova_tpu_torch.asm.stackster
+import supernova_tpu_torch.ingest.discovery
 import supernova_tpu_torch.pipeline.run
 import supernova_tpu_torch.pipeline.datasets
 import supernova_tpu_torch.stats.profile_slice
 import supernova_tpu_torch.convert
+from supernova_tpu_torch.ingest.barcodes import Whitelist
+from supernova_tpu_torch.ingest.tenx import ingest_10x_fastqs, write_sim_fastqs
 from supernova_tpu_torch.kmer.count import count_readset, count_readset_blocked
+from supernova_tpu_torch.native import load_native
+from supernova_tpu_torch.pipeline.preflight import preflight
+from supernova_tpu_torch.pipeline.run import Pipeline
 rng = np.random.default_rng(0)
 g = sim.random_genome(rng, 700)
 reads = [g[s:s + 150].copy() for s in range(0, 480, 30)]
@@ -205,6 +214,19 @@ assert int(t.n_valid) > 0
 info = {}
 tb = count_readset_blocked(rs, "cpu", min_freq=1, max_positions=600, info=info)
 assert int(tb.n_valid) == int(t.n_valid) and info["blocks"] >= 3
+g = sim.random_genome(rng, 5000, n_repeat_chunks=1, repeat_len=200)
+_, hb = sim.diploidize(rng, g, het_rate=0.0005)
+wlc = sim.make_whitelist(rng, 128)
+reads = sim.simulate_linked_reads(rng, (g, hb), wlc, n_barcodes=40, molecules_per_barcode=3,
+                                  molecule_len=2500, coverage_per_molecule=2.0)
+with tempfile.TemporaryDirectory() as d:
+    r1, r2 = write_sim_fastqs(reads, d + "/fq")
+    assert preflight([str(r1)], [str(r2)], len(wlc)).ok and load_native() is not None
+    rs = ingest_10x_fastqs([r1], [r2], Whitelist.from_codes(wlc))
+    bg, fasta = Pipeline(d + "/asm", device="cpu").run(rs)
+    pl = Pipeline(d + "/asm", device="cpu", resume=True)
+    pl.stage_patch(bg, pl.stage_paths(bg, rs), rs)
+    assert fasta.exists() and pl.stats.get("gap_pairs") is not None
 print("jax" in sys.modules, sorted(m for m in sys.modules
                                     if m.split(".")[0] in ("jax", "jaxlib", "supernova_tpu")))
 """

@@ -46,12 +46,24 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      pather's paths (paths.npz reused by a resumed Pipeline, no launch):
      gap pairs and closures, the patched graph's edges, the re-path's
      placed_perc, the rebuild's launches (each kernel > 0 when anything
-     closed).  [resume]: run() again on the same outdir with resume=True:
-     no launch in the count and graph stages, no K3 or K2 in the paths
-     stage, the same FASTA bytes.  [patch kernels]: K1-K4 against their
-     twins at the rebuild count's shapes (one strand of every edge plus the
-     closures, unbarcoded, min_freq 1, min_read_len K).  The genome's
-     later phases use this FASTQ-ingested readset;
+     closed); then [supergraph]: stage_supergraph on the patched graph
+     and its paths (wall, peak, the closure glue's route, which must be
+     "device", its closure positions P and its budget overflows, which
+     must be 0; closures, super edges, lines before and after the break,
+     pull-aparts; K4 and K2 launched by the stage), then the stage's
+     closures glued again: D through the device glue equal to D through
+     the host core, the glue's labels on the card equal to its plain
+     twin's on CPU tensors, and K4 (steps 1, 3, 4 and the zipper's sort)
+     and K2 (the seed compaction) against their twins at the inputs the
+     glue gave them, timed beside their bounds and, for the 2-key sorts, a
+     stable torch.sort of the packed pair.  [resume]: run() again on the
+     same outdir with resume=True: no launch in the count and graph
+     stages, no K3 or K2 in the paths stage, the same FASTA bytes; then
+     stage_supergraph resumed: no launch, the same D and lines.  [patch
+     kernels]: K1-K4 against their twins at the rebuild count's shapes
+     (one strand of every edge plus the closures, unbarcoded, min_freq 1,
+     min_read_len K).  The genome's later phases use this FASTQ-ingested
+     readset;
   7. the genome's count three more ways (count stage only): (a) its merge
      cut into >= 4 kmer-range partitions on the card, blocks spilled to a
      directory; (b) the same call again, every block resumed from the
@@ -64,7 +76,10 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      packed inputs it replaced (a yardstick): identical raw tables, walls;
      then the general pather, with and without the tail cut, equal to the
      fused one on the genome's first block;
-  8. the genome cut to mixed lengths (3M reads, 415.5M bases): first each
+  8. the genome cut to mixed lengths, on the reads of the barcodes that
+     hold its first 65% (~1.95M reads, ~270M bases, three count blocks;
+     the whole cut genome, 415.5M bases in five blocks, cost 135 s of the
+     script's 1,007 s on one H100, 84% of its 1,200 s limit): first each
      kernel against its twin at the shapes its first block gives them
      (every position a sort row, the sorted stream ending in one sentinel
      run; K3 with (1, 0) and with the filter, then alone on the real rows,
@@ -91,12 +106,13 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      3 keys) and at its graph's chain-order shape (2 keys, two nodes a
      kmer), and the merge's peak device bytes per raw row;
  12. no module of the JAX package (or jax) was imported.
-Then one JSON line with the kernels (launches from the main path, the
-fastq run's run() and stage_patch; patch_launches from its rebuild;
-mixed_launches from the mixed genome's run(); mixed_* times from 8,
-patch_* times from 6), the
-nvidia-smi line, and the last line {"ok": true, "device": {...}}.  Exits
-nonzero without a GPU.
+Each phase's wall is printed as a [time] line.  Then one JSON line with
+the kernels (launches from the main path, the fastq run's run(),
+stage_patch and stage_supergraph; patch_launches from its rebuild;
+supergraph_launches from stage_supergraph; mixed_launches from the mixed
+genome's run(); mixed_* times from 8, patch_* and glue times from 6),
+the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
+Exits nonzero without a GPU.
 """
 from __future__ import annotations
 
@@ -413,13 +429,11 @@ def mixed_view(r, key="mixed"):
 K2_FILLS = (0xFFFFFFFF,) * 3 + (0, 0)
 
 
-def check_compact(torch, keep, cols, label):
-    """K2 against its twin on the count's five columns, without fill (the
-    kept rows; today's row, with its bound and `c[keep]` yardstick) and
-    with the count's fill (every row), beside the sequence the count ran
-    before K2 wrote the tail: K2, a zero pass over every column and a
-    sentinel pass over the words.  Bounds: bytes the function must move,
-    and the sector floor (a kept row's read of a column costs 32 B)."""
+def compact_kept(torch, keep, cols, label):
+    """K2 against its twin without fill: the kept rows exactly equal; its
+    time beside the bound (read the mask, read and write the kept rows of
+    every column), the sector floor (a kept row's read of a column costs
+    32 B), the plain twin and `c[keep]` for each column (the library)."""
     from supernova_tpu_torch.ops.kernels import compact as k2
 
     rows = keep.shape[0]
@@ -432,6 +446,28 @@ def check_compact(torch, keep, cols, label):
     check(all(torch.equal(x[:nv], y[:nv]) for x, y in zip(out_k, out_p)),
           f"K2 differs from plain ({label})")
     del out_k, out_p
+    row_bytes = sum(c.element_size() for c in cols)
+    return dict(
+        shape=f"{rows} rows x {len(cols)} columns, {nv} kept ({nv / rows:.4f})", max_abs_err=err,
+        ms=median_ms(torch, lambda: k2.compact_cuda(keep, *cols)),
+        plain_ms=median_ms(torch, lambda: k2.compact_plain(keep, *cols)),
+        bound_ms=bound_ms(rows + 2 * nv * row_bytes),
+        sector_floor_ms=bound_ms(rows + nv * len(cols) * 32 + nv * row_bytes),
+        library_ms=median_ms(torch, lambda: [c[keep] for c in cols]),
+        library_shape=f"c[keep] for each of the {len(cols)} columns",
+    ), nv
+
+
+def check_compact(torch, keep, cols, label):
+    """K2 against its twin on the count's five columns, without fill (the
+    kept rows; compact_kept) and with the count's fill (every row), beside
+    the sequence the count ran before K2 wrote the tail: K2, a zero pass
+    over every column and a sentinel pass over the words.  Bounds: bytes
+    the function must move, and the sector floor."""
+    from supernova_tpu_torch.ops.kernels import compact as k2
+
+    rows = keep.shape[0]
+    r, nv = compact_kept(torch, keep, cols, label)
 
     def three_step():
         n_valid, outs = k2.compact_cuda(keep, *cols)
@@ -444,7 +480,7 @@ def check_compact(torch, keep, cols, label):
     fill_p = k2.compact_plain(keep, *cols, fills=K2_FILLS)[1]
     old = three_step()
     torch.cuda.synchronize()
-    err = max(err, max_abs_err(torch, zip(fill_k, fill_p)))
+    r["max_abs_err"] = max(r["max_abs_err"], max_abs_err(torch, zip(fill_k, fill_p)))
     check(all(torch.equal(x, y) for x, y in zip(fill_k, fill_p)),
           f"K2 with fill differs from plain ({label})")
     check(all(torch.equal(x, y) for x, y in zip(fill_k, old)),
@@ -452,15 +488,7 @@ def check_compact(torch, keep, cols, label):
     del fill_k, fill_p, old
     row_bytes = sum(c.element_size() for c in cols)
     sectors = nv * len(cols) * 32
-    r = dict(
-        shape=f"{rows} rows x {len(cols)} columns, {nv} kept ({nv / rows:.4f})", max_abs_err=err,
-        ms=median_ms(torch, lambda: k2.compact_cuda(keep, *cols)),
-        plain_ms=median_ms(torch, lambda: k2.compact_plain(keep, *cols)),
-        # read the mask, read and write the kept rows of every column
-        bound_ms=bound_ms(rows + 2 * nv * row_bytes),
-        sector_floor_ms=bound_ms(rows + sectors + nv * row_bytes),
-        library_ms=median_ms(torch, lambda: [c[keep] for c in cols]),
-        library_shape=f"c[keep] for each of the {len(cols)} columns",
+    r.update(
         fill_ms=median_ms(torch, lambda: k2.compact_cuda(keep, *cols, fills=K2_FILLS)),
         fill_plain_ms=median_ms(torch, lambda: k2.compact_plain(keep, *cols, fills=K2_FILLS)),
         three_step_ms=median_ms(torch, three_step),
@@ -731,14 +759,200 @@ def phase_fastq_run(torch, dev, outdir):
         check(placed >= 95.0, f"re-path placed_perc {placed} < 95")
     else:
         print("[fastq run] nothing closed: the patch stage returned its inputs, no rebuild")
-    total = {k: launches[k] + patch_launches[k] for k in launches}
-    return total, crec, table, bg, rs, rec
+    sg = phase_supergraph(torch, pl, bg2, rp2, rs)
+    total = {k: launches[k] + patch_launches[k] + sg["launches"][k] for k in launches}
+    return total, crec, table, bg, rs, rec, sg
 
 
-def phase_resume(torch, rs, outdir):
+def same_supergraph(want, got, label):
+    """Two SuperGraphs with the same edges, involution and vertices."""
+    import numpy as np
+
+    for f in ("dinv", "from_v", "to_v"):
+        check(np.array_equal(getattr(want, f), getattr(got, f)), f"{label}: D {f} differs")
+    check(np.array_equal(want.epaths.values, got.epaths.values)
+          and np.array_equal(want.epaths.offsets, got.epaths.offsets),
+          f"{label}: D epaths differ")
+    check(want.n_vertices == got.n_vertices, f"{label}: D n_vertices differs")
+
+
+def lines_key(lines):
+    """A line decomposition as nested tuples (cells' paths, line_of_edge,
+    linv)."""
+    return (tuple(tuple(tuple(tuple(int(e) for e in q) for q in cell.paths)
+                        for cell in line.elements) for line in lines.lines),
+            tuple(int(x) for x in lines.line_of_edge), tuple(int(x) for x in lines.linv))
+
+
+def phase_supergraph(torch, pl, bg, rp, rs):
+    """stage_supergraph on the patched graph and its paths, on the card,
+    the launch counters set to 0 just before and read just after: the
+    closure glue must take the device route with no budget overflow and
+    launch K4 and K2.  Returns the patched graph, its paths (on the host),
+    D, the lines, the stage's launches, its record and the stats getter."""
+    from supernova_tpu_torch.ops import kernels
+
+    asm = pl.outdir
+    kernels.reset_launch_counts()
+    D, lines, _ = pl._timed("supergraph", pl.stage_supergraph, bg, rp, rs)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    rec = pl.stage_records["supergraph"]
+    st = pl.stats.get
+    print(f"[supergraph] stage_supergraph: wall {rec['wall_s']:.3f} s, peak device memory "
+          f"{rec['peak_gb']:.3f} GiB; glue_route {rec.get('glue_route')}, closure positions "
+          f"P {rec.get('glue_positions')}, overflow (candidates, long pairs, union pairs) "
+          f"{rec.get('glue_overflow')}; launches {launches}")
+    print(f"[supergraph] n_closures {st('n_closures')}, closures_trimmed "
+          f"{st('closures_trimmed')}, supergraph_mode {st('supergraph_mode')}, "
+          f"super_edges_cleaned {st('super_edges_cleaned')}, n_pullaparts "
+          f"{st('n_pullaparts')}, n_decycled {st('n_decycled')}, n_loops_captured "
+          f"{st('n_loops_captured')}, n_messy_loops_captured {st('n_messy_loops_captured')}; "
+          f"n_super_edges {st('n_super_edges')}, n_lines {st('n_lines')}, n_lines_after_break "
+          f"{st('n_lines_after_break')}; lw_mean_mol_len {st('lw_mean_mol_len')}, dup_frac "
+          f"{st('dup_frac')}, median_ins_sz {st('median_ins_sz')}")
+    check(rec.get("glue_route") == "device",
+          f"supergraph: the closure glue took route {rec.get('glue_route')}, not the device")
+    check(tuple(rec["glue_overflow"]) == (0, 0, 0),
+          f"supergraph: glue budget overflow {rec['glue_overflow']}")
+    for name in ("sort", "compact"):
+        check(launches[name] > 0, f"supergraph: kernel {name} was not launched by the stage")
+    for name in ("cpaths.npz", "dpaths.npz", "supergraph.npz", "stats/histogram_molecules.json"):
+        check(os.path.exists(f"{asm}/{name}"), f"supergraph: {name} not written")
+    check(lines.n_lines > 0 and st("n_lines_after_break") >= st("n_lines"),
+          "supergraph: no lines, or the break lost lines")
+    D.validate()
+    rp_host = type(rp)(*(x.cpu() for x in rp))
+    return dict(bg=bg, rp=rp_host, D=D, lines=lines, launches=launches, rec=rec, stats=st)
+
+
+def glue_inputs(bg, rp, rs, outdir):
+    """The closures the stage glued: cpaths.npz less those on a weak fork
+    edge (the stage's trim) -> (closures, sanitized closures)."""
+    import numpy as np
+    from supernova_tpu_torch import convert
+    from supernova_tpu_torch.align import index as pindex
+    from supernova_tpu_torch.asm import closures as aclos
+    from supernova_tpu_torch.asm import nucleate as anuc
+    from supernova_tpu_torch.asm import supergraph as asg
+
+    edges, plen, _ = (x[: rs.n_reads] for x in convert.readpaths_to_numpy(rp)[:3])
+    keep_forks = asg.trim_weak_edges(bg, pindex.edge_read_counts(edges, plen, bg.n_edges),
+                                     tips=False)
+    cl = [c for c in aclos.load_closures(f"{outdir}/cpaths.npz")
+          if bool(keep_forks[np.asarray(c, np.int64)].all())]
+    return cl, anuc.sanitize_closures(bg, cl)
+
+
+# the glue's sorts, in call order: name by the number of keys of the call
+GLUE_SORTS = ("step 1 (edge, closure)", "step 3 (edge, closure, pos)",
+              "step 4 (c1, c2, off)")
+
+
+def phase_glue(torch, dev, sg, rs, outdir, res):
+    """The stage's closure glue again, three ways: D through the device
+    glue (nucleate_graph's own gate) against D through the host core; the
+    labels of glue_closures_device on the card against its plain twin on
+    CPU tensors, exactly; and K4 and K2 against their twins at the inputs
+    the glue gave them (recorded by wrapping the module's lex_argsort and
+    compact), each timed beside its bound and, for the 2-key sorts, a
+    stable torch.sort of the packed pair.  Adds glue_* keys to the sort and
+    compact entries of `res`."""
+    import numpy as np
+    from supernova_tpu_torch.asm import nucleate as anuc
+    from supernova_tpu_torch.ops import kernels
+    from supernova_tpu_torch.parallel import device_nucleate as dn
+
+    bg = sg["bg"]
+    cl, cls = glue_inputs(bg, sg["rp"], rs, outdir)
+    st = sg["stats"]
+    check(len(cl) == st("n_closures") - (st("closures_trimmed") or 0),
+          f"glue: {len(cl)} closures rebuilt, not the {st('n_closures')} less "
+          f"{st('closures_trimmed')} trimmed that the stage glued")
+    info = {}
+    t0 = time.perf_counter()
+    D_dev = anuc.nucleate_graph(bg, cl, None, device=dev, info=info)
+    dev_s = time.perf_counter() - t0
+    check(info["glue_route"] == "device", f"glue: route {info['glue_route']}")
+    t0 = time.perf_counter()
+    D_host = anuc.nucleate_graph(bg, cl, None, device_glue=False)
+    host_s = time.perf_counter() - t0
+    same_supergraph(D_host, D_dev, "glue: device glue vs host core")
+    print(f"[supergraph] D from the device glue == D from the host core: {D_dev.n_edges} "
+          f"edges, {D_dev.n_vertices} vertices; nucleate_graph {dev_s:.3f} s through the "
+          f"device glue, {host_s:.3f} s through the host core (host clock, _quotient included)")
+
+    calls, kept, compacts = [], [], []
+
+    def sort_spy(*keys):
+        calls.append(len(keys))
+        # the first three sorts and the first 2-key sort after them (the zipper)
+        if len(calls) <= len(GLUE_SORTS) or (len(keys) == 2 and len(kept) == len(GLUE_SORTS)):
+            kept.append(keys)
+        return lex_argsort(*keys)
+
+    def compact_spy(valid, *cols, **kw):
+        compacts.append((valid, cols))
+        return compact(valid, *cols, **kw)
+
+    lex_argsort, compact = dn.lex_argsort, dn.compact
+    dn.lex_argsort, dn.compact = sort_spy, compact_spy
+    info = {}
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        lab_dev = dn.glue_closures_device(bg, cls, anuc.MIN_OVER_BASES, True, dev, info=info)
+        torch.cuda.synchronize()
+        glue_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        dn.lex_argsort, dn.compact = lex_argsort, compact
+    t0 = time.perf_counter()
+    lab_cpu = dn.glue_closures_device(bg, cls, anuc.MIN_OVER_BASES, True, "cpu")
+    cpu_s = time.perf_counter() - t0
+    check(lab_dev is not None and lab_cpu is not None, "glue: a budget overflowed")
+    check(info["positions"] == sg["rec"]["glue_positions"],
+          f"glue: P {info['positions']} is not the stage's {sg['rec']['glue_positions']}")
+    check(np.array_equal(lab_dev, lab_cpu), "glue: labels on the card differ from the CPU twin's")
+    n_classes = len(np.unique(lab_dev))
+    zips = calls[len(GLUE_SORTS):].count(2) // 2
+    rows = info["rows"]
+    per_row = peak / max(sum(rows), 1)
+    print(f"[supergraph] glue labels on the card == the plain twin's on the CPU: "
+          f"{len(lab_dev)} boundaries, {n_classes} classes; {len(cls)} sanitized closures, "
+          f"P {info['positions']}; glue_closures_device {glue_s:.3f} s on the card "
+          f"({launches}; sorts of {calls} keys, {zips} zipper rounds), {cpu_s:.3f} s on the "
+          f"CPU (host clock)")
+    print(f"[supergraph] glue rows: candidates {rows[0]}, long pairs {rows[1]}, union pairs "
+          f"{rows[2]} ({rows[2] / info['positions']:.2f} P); peak device memory "
+          f"{peak / 2**30:.3f} GiB above its inputs, {per_row:.1f} B a row")
+    rows = []
+    for label, keys in zip(GLUE_SORTS + ("step 10 zipper (head, edge)",), kept):
+        shape = f"{keys[0].shape[0]} rows x {len(keys)} keys (glue {label})"
+        r, _ = check_sort(torch, [k.contiguous() for k in keys], shape)
+        if len(keys) != 2:  # a 2-key library sort is not the same function
+            r["library_ms"] = None
+        rows.append({k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "library_ms")})
+    res["sort"]["glue"] = rows
+    valid, cols = compacts[0]
+    r, _ = compact_kept(torch, valid, cols, "glue seeds")
+    print_kernel("compact (glue seeds)", r)
+    res["compact"]["glue"] = [{k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                  "bound_ms", "library_ms")}]
+
+
+def phase_resume(torch, rs, outdir, sg):
     """The fastq run's outdir again with resume=True: the count and graph
     stages reload kmers.npz and graph.npz (no launch), the paths stage runs
-    no K3 and no K2, and the FASTA's bytes are the same."""
+    no K3 and no K2, and the FASTA's bytes are the same; then
+    stage_supergraph on the patched graph (`sg`, phase_supergraph's) re-enters
+    from supergraph.npz and dpaths.npz with no launch and returns the same
+    D and lines."""
     from supernova_tpu_torch.ops import kernels
     from supernova_tpu_torch.pipeline.run import Pipeline
 
@@ -762,6 +976,17 @@ def phase_resume(torch, rs, outdir):
     print(f"[resume] run() {wall:.3f} s: kmers.npz and graph.npz reloaded, no K3 or K2 in the "
           f"count, graph and paths stages; assembly.raw.fasta.gz identical ({len(want)} bytes "
           "decompressed)")
+    kernels.reset_launch_counts()
+    pl = Pipeline(asm, device="cuda", resume=True)
+    D, lines, _ = pl._timed("supergraph", pl.stage_supergraph, sg["bg"], sg["rp"], rs)
+    launches = kernels.launch_counts()
+    check(sum(launches.values()) == 0, f"resume: stage_supergraph launched {launches}")
+    same_supergraph(sg["D"], D, "resume: supergraph")
+    check(lines_key(lines) == lines_key(sg["lines"]), "resume: the lines differ")
+    rec = pl.stage_records["supergraph"]
+    print(f"[resume] stage_supergraph: wall {rec['wall_s']:.3f} s, no launch: supergraph.npz "
+          f"and dpaths.npz reloaded, the same D ({D.n_edges} edges) and {lines.n_lines} lines "
+          f"(the break and the molecules recomputed on the host)")
 
 
 def phase_kernels_patch(torch, dev, bg, outdir, res, save_s):
@@ -1004,6 +1229,26 @@ def phase_block_prep(torch, rs, dev):
           f"prepare_reads {walls['port'][0]:.3f} / {walls['port'][1]:.3f} s, "
           f"{peaks['port']:.3f} GiB; packed inputs (yardstick) {walls['packed'][0]:.3f} / "
           f"{walls['packed'][1]:.3f} s, {peaks['packed']:.3f} GiB; raw tables identical")
+
+
+# the share of the mixed genome's reads its phases run on: three count
+# blocks (the whole mixed genome is five), to keep the script inside its
+# time limit on a slow host
+MIXED_FRACTION = 0.65
+
+
+def first_barcodes(rs, fraction):
+    """The reads of rs's first barcodes (in id order) up to `fraction` of
+    its reads, whole barcodes and pairs: coverage falls evenly, since each
+    barcode's molecules lie at random places of the genome."""
+    import numpy as np
+    from supernova_tpu_torch.ingest.reads import ReadSet
+
+    end = int(rs.bci[np.searchsorted(rs.bci, fraction * rs.n_reads)])
+    check(end % 2 == 0, "first_barcodes: a barcode's reads are not whole pairs")
+    cut = int(rs.offsets[end])
+    return ReadSet(codes=rs.codes[:cut], offsets=rs.offsets[:end + 1], quals=rs.quals[:cut],
+                   bc=rs.bc[:end], bci=np.minimum(rs.bci, end), barcoded=rs.barcoded)
 
 
 def phase_mixed_count(torch, rs, want, dev):
@@ -1343,52 +1588,68 @@ def main() -> int:
     from supernova_tpu_torch.pipeline import datasets
 
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
-    rs_full = datasets.simulate(datasets.FULL, datasets.FULL_SEED)
-    print(f"[data] full slice: {rs_full.n_reads} reads, {int(rs_full.offsets[-1])} bases "
-          f"simulated in {time.perf_counter() - t0:.1f} s")
-    kres = phase_kernels(torch, rs_full, dev)
+    phase_s = {}
+
+    def timed(name, fn, *a, **kw):
+        """fn(*a, **kw), its wall kept under `name` and printed."""
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"[time] {name}: {phase_s[name]:.1f} s")
+        return out
+
+    rs_full = timed("simulate full slice", datasets.simulate, datasets.FULL, datasets.FULL_SEED)
+    print(f"[data] full slice: {rs_full.n_reads} reads, {int(rs_full.offsets[-1])} bases")
+    kres = timed("kernels", phase_kernels, torch, rs_full, dev)
     torch.cuda.empty_cache()
     rs_small = datasets.simulate(datasets.SMALL, datasets.SMALL_SEED)
-    phase_small_slice(torch, rs_small)
-    phase_small_slice(torch, datasets.r1_trimmed(rs_small), "small mixed", block_positions=300_000)
+    timed("small", phase_small_slice, torch, rs_small)
+    timed("small mixed", phase_small_slice, torch, datasets.r1_trimmed(rs_small), "small mixed",
+          block_positions=300_000)
     del rs_small
     with tempfile.TemporaryDirectory() as d:
-        phase_slice(torch, rs_full, "full", d)
+        timed("full", phase_slice, torch, rs_full, "full", d)
     del rs_full
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as d:
-        launches, crec, table, bg, rs_genome, patch_rec = phase_fastq_run(torch, dev, d)
+        launches, crec, table, bg, rs_genome, patch_rec, sg = timed(
+            "fastq run", phase_fastq_run, torch, dev, d)
         torch.cuda.empty_cache()
-        phase_resume(torch, rs_genome, d)
+        timed("supergraph glue", phase_glue, torch, dev, sg, rs_genome, f"{d}/asm", kres)
         torch.cuda.empty_cache()
-        phase_kernels_patch(torch, dev, bg, d, kres, patch_rec.get("save_s", 0.0))
+        timed("resume", phase_resume, torch, rs_genome, d, sg)
+        torch.cuda.empty_cache()
+        timed("patch kernels", phase_kernels_patch, torch, dev, bg, d, kres,
+              patch_rec.get("save_s", 0.0))
+    sg_launches = sg["launches"]
+    del sg
     torch.cuda.empty_cache()
-    phase_genome_count(torch, rs_genome, table, crec["raw_rows"], dev)
-    phase_block_prep(torch, rs_genome, dev)
-    phase_general_vs_fused(torch, bg, rs_genome, dev)
-    rs_mixed = datasets.r1_trimmed(rs_genome)
+    timed("genome count", phase_genome_count, torch, rs_genome, table, crec["raw_rows"], dev)
+    timed("block prep", phase_block_prep, torch, rs_genome, dev)
+    timed("general vs fused", phase_general_vs_fused, torch, bg, rs_genome, dev)
+    rs_mixed = first_barcodes(datasets.r1_trimmed(rs_genome), MIXED_FRACTION)
     del rs_genome, bg
     torch.cuda.empty_cache()
-    print(f"[data] mixed genome (every R1 cut by {datasets.R1_SKIP} bases): {rs_mixed.n_reads} "
-          f"reads, {int(rs_mixed.offsets[-1])} bases")
-    phase_kernels_mixed(torch, rs_mixed, dev, kres)
+    print(f"[data] mixed genome (every R1 cut by {datasets.R1_SKIP} bases; the barcodes of "
+          f"{MIXED_FRACTION:.0%} of its reads): {rs_mixed.n_reads} reads, "
+          f"{int(rs_mixed.offsets[-1])} bases")
+    timed("mixed kernels", phase_kernels_mixed, torch, rs_mixed, dev, kres)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
-        launches_mixed, _, table_mixed, bg_mixed, _ = phase_slice(torch, rs_mixed, "mixed", d,
-                                                                  min_blocks=2)
+        launches_mixed, _, table_mixed, bg_mixed, _ = timed(
+            "mixed", phase_slice, torch, rs_mixed, "mixed", d, min_blocks=2)
     torch.cuda.empty_cache()
-    phase_mixed_count(torch, rs_mixed, table_mixed, dev)
-    phase_mixed_paths(torch, bg_mixed, rs_mixed, dev)
+    timed("mixed count", phase_mixed_count, torch, rs_mixed, table_mixed, dev)
+    timed("mixed paths", phase_mixed_paths, torch, bg_mixed, rs_mixed, dev)
     del rs_mixed, bg_mixed, table_mixed
     torch.cuda.empty_cache()
-    phase_graph_chunks(torch, table, dev)
+    timed("graph chunks", phase_graph_chunks, torch, table, dev)
     torch.cuda.empty_cache()
-    phase_scale_merge(torch, dev, **SCALE)
-    phase_merge(torch, crec["raw_rows"])
+    timed("scale", phase_scale_merge, torch, dev, **SCALE)
+    timed("merge", phase_merge, torch, crec["raw_rows"])
     torch.cuda.empty_cache()
-    phase_graph_sort(torch, table.n_valid)
+    timed("graph sort", phase_graph_sort, torch, table.n_valid)
 
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "supernova_tpu"))
     check(not jax_mods, f"the port imported {jax_mods[:5]}")
@@ -1400,6 +1661,7 @@ def main() -> int:
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
              library_ms=r.get("library_ms"), mixed_launches=launches_mixed[name],
              patch_launches=patch_rec.get("rebuild_launches", {}).get(name, 0),
+             supergraph_launches=sg_launches[name],
              **{k: v for k, v in r.items() if k not in COMMON_KEYS})
         for name, r in kres.items()
     ]}))

@@ -1,11 +1,13 @@
-"""Native (C++) host-side FASTQ decoder, loaded via ctypes.
+"""Native (C++) host-side components, loaded via ctypes: the FASTQ decoder
+and the NucleateGraph glue core.
 
-The port's own copy of the FASTQ half of supernova_tpu/native/__init__.py
-(load_native, decode_fastq_bytes; fastq_decode.cpp unchanged), kept equal
-to it by tests/test_torch_hostcopies.py.  One change: the shared library is
-built into supernova_tpu_torch/_build/, keyed on the source hash, beside the
-port's CUDA kernels.  The pure-Python path is the reference's host decoder
-for machines without g++, not a device fallback.
+The port's own copy of supernova_tpu/native/__init__.py (load_native,
+decode_fastq_bytes, load_nucleate; fastq_decode.cpp and nucleate_core.cpp
+unchanged), kept equal to it by tests/test_torch_hostcopies.py.  One
+change: the shared libraries are built into supernova_tpu_torch/_build/,
+keyed on the source hash, beside the port's CUDA kernels.  The pure-Python
+paths are the reference's host code for machines without g++, not a device
+fallback.
 """
 from __future__ import annotations
 
@@ -97,3 +99,43 @@ def decode_fastq_bytes(data: bytes):
         np.concatenate(quals_l) if quals_l else np.zeros(0, np.uint8),
         offsets,
     )
+
+
+_NUC_LIB = None
+_NUC_TRIED = False
+
+
+def load_nucleate():
+    """ctypes handle to the NucleateGraph glue core, or None."""
+    global _NUC_LIB, _NUC_TRIED
+    if _NUC_LIB is not None or _NUC_TRIED:
+        return _NUC_LIB
+    _NUC_TRIED = True
+    try:
+        src_path = Path(__file__).parent / "nucleate_core.cpp"
+        src = src_path.read_bytes()
+        tag = hashlib.sha1(src).hexdigest()[:12]
+        so = _build_dir() / f"nucleate_core_{tag}.so"
+        if not so.exists():
+            subprocess.run(
+                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+                 str(src_path), "-o", str(so)],
+                check=True, capture_output=True,
+            )
+        lib = ctypes.CDLL(str(so))
+        i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        lib.nucleate_glue.restype = ctypes.c_int
+        lib.nucleate_glue.argtypes = [
+            i32, i64, ctypes.c_int64,          # vals, offs, n
+            i64, ctypes.c_int64,               # kmers, n_edges
+            i64,                               # cinv
+            ctypes.c_int64, ctypes.c_int64,    # min_over, floor
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # adaptive, interior, max_partners
+            i64, ctypes.c_int64,               # extra_pairs, n_extra
+            i64,                               # parent (out)
+        ]
+        _NUC_LIB = lib
+    except Exception:
+        _NUC_LIB = None
+    return _NUC_LIB

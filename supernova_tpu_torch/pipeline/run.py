@@ -1,5 +1,5 @@
 """The port's Pipeline: supernova_tpu's Pipeline.run on one device, and
-its patch stage.
+its patch and supergraph stages.
 
     ReadSet -> stage_ingest -> stage_count (under the coverage guard)
             -> stage_graph -> stage_paths -> stage_fasta("raw") -> finalize
@@ -7,14 +7,17 @@ its patch stage.
 
 as supernova_tpu/pipeline/run.py's Pipeline.run runs it, each stage under
 the port's stage timer; stage_patch (dead-end pairs -> closures -> the
-graph rebuilt on the device -> re-path) is run_full's next stage and is
-called by the caller after run().  Every stage writes the reference's
-checkpoint (reads.npz, kmers.npz, graph.npz, paths.npz, ebcx.npz,
-closures.npz, graph.patched.npz) in its format, and with resume=True
-reloads it instead of recomputing.  Readsets above one count block take
-the blocked count and pather; the count stage's record then holds its
-block, row, partition, spill and OOM-retry counts, and every stage's
-record the kernel launches made in it.  finalize() writes summary.json,
+graph rebuilt on the device -> re-path) and stage_supergraph (closures
+glued into the supergraph D on the device -> cleanup -> lines ->
+molecules) are run_full's next stages and are called by the caller after
+run().  Every stage writes the reference's checkpoint (reads.npz,
+kmers.npz, graph.npz, paths.npz, ebcx.npz, closures.npz,
+graph.patched.npz, cpaths.npz, dpaths.npz, supergraph.npz) in its
+format, and with resume=True reloads it instead of recomputing.
+Readsets above one count block take the blocked count and pather; the
+count stage's record then holds its block, row, partition, spill and
+OOM-retry counts, and every stage's record the kernel launches made in
+it.  finalize() writes summary.json,
 summary_cs.csv, stats/summary.txt and alerts.json; all_stats.json is
 rewritten after every stage.
 """
@@ -34,10 +37,22 @@ from ..align import index as pindex
 from ..align import pather, pathzip
 from ..align import rescue as arescue
 from ..asm import bads as abads
+from ..asm import bubbles as abub
+from ..asm import capture as acap
+from ..asm import clean as aclean
+from ..asm import closures as aclos
 from ..asm import dups as adups
+from ..asm import inversion as ainv
+from ..asm import lines as alines
+from ..asm import misassembly as amis
+from ..asm import molecules as amol
 from ..asm import patch as apatch
+from ..asm import place as aplace
+from ..asm import pullapart as apull
+from ..asm import supergraph as asg
 from ..core.device import resolve_device
 from ..core.kmer_codec import W3
+from ..core.ragged import Ragged
 from ..dbg import build as dbuild
 from ..dbg import graph as dgraph
 from ..ingest.ingest import subsample_pairs, valid_barcode_fraction
@@ -55,8 +70,8 @@ log = logging.getLogger("supernova_tpu_torch")
 # Flat base count above which the ReadSet re-homes onto disk memmaps
 # (reads.lazy/), as the reference's (supernova_tpu/pipeline/run.py:40-43).
 LAZY_READS_MIN_BASES = 2_000_000_000
-# the reference's other FASTA flavors, which need the supergraph, scaffold
-# and phase stages
+# the reference's other FASTA flavors, which need the scaffold and phase
+# stages
 LATER_FLAVORS = ("megabubbles", "pseudohap", "pseudohap2", "efasta")
 
 
@@ -333,11 +348,226 @@ class Pipeline:
     def _fasta_path(self, flavor: str) -> Path:
         if flavor in LATER_FLAVORS:
             raise NotImplementedError(
-                f"FASTA flavor {flavor!r} needs the supergraph, scaffold and phase stages, "
-                "not yet ported (ROADMAP A8); this port writes the raw flavor")
+                f"FASTA flavor {flavor!r} needs the scaffold and phase stages, not yet "
+                "ported (ROADMAP A8); this port writes the raw flavor")
         if flavor != "raw":
             raise ValueError(f"unknown flavor {flavor}")
         return self.outdir / f"assembly.{flavor}.fasta.gz"
+
+    def _resume_supergraph(self, bg, rs, ck, dck):
+        """START=supergraph re-entry (the reference's run.py:679-746): D and
+        the lines from supergraph.npz, the placements from dpaths.npz, the
+        closures from cpaths.npz, then the misassembly break and the
+        molecules recomputed -> (D, lines, dup), or None when the
+        checkpoints belong to other reads or another graph."""
+        z = np.load(ck)
+        dz = np.load(dck)
+        ev = z["epaths_values"]
+        if len(dz["dlen"]) != rs.n_reads or (ev.size and int(ev.max()) >= bg.n_edges):
+            return None  # different reads or graph: recompute
+        from_v = z["from_v"]
+        to_v = z["to_v"]
+        nv = int(max(from_v.max(), to_v.max())) + 1 if len(from_v) else 0
+        D = asg.SuperGraph(epaths=Ragged(ev, z["epaths_offsets"]), dinv=z["dinv"],
+                           from_v=from_v, to_v=to_v, n_vertices=nv, bg=bg)
+        dpaths, dlen = dz["dpaths"], dz["dlen"]
+        if dpaths.size and int(dpaths.max()) >= D.n_edges:
+            return None  # dpaths.npz belongs to a different D: recompute
+        lines = alines.find_lines(D)
+        self._dpaths, self._dlen = dpaths, dlen
+        cpk = self.outdir / "cpaths.npz"
+        if cpk.exists():
+            self._closures = aclos.load_closures(cpk)  # Splat input (a.cpaths)
+        if rs.barcoded:
+            edges, plen, _off = self._base_paths
+            ek = self.outdir / "ebcx.npz"
+            ebcx = None
+            if ek.exists():
+                ze = np.load(ek)
+                if len(ze["offsets"]) == bg.n_edges + 1:
+                    ebcx = Ragged(ze["values"], ze["offsets"])
+            if ebcx is None:
+                ebcx = pindex.edge_barcodes(edges, plen, rs.bc, bg.n_edges)
+            sup_bcs = asg.super_edge_barcodes(D, ebcx)
+            pos0 = amol.read_line_positions(D, lines, dpaths, dlen, rs.bc,
+                                            base_paths=self._base_paths)
+            lines = amis.break_lines(lines, D, sup_bcs, line_positions=pos0)
+            self._set_molecules(D, lines, dpaths, dlen, rs)
+        log.info("supergraph: resumed from checkpoints")
+        return D, lines, z["dup"]
+
+    def _set_molecules(self, D, lines, dpaths, dlen, rs):
+        """Barcode molecules on the lines (lbpx analogue) and, for
+        orientation-aware scaffolding, line -> {bc: [positions]}; returns
+        the molecules."""
+        positions = amol.read_line_positions(D, lines, dpaths, dlen, rs.bc,
+                                             base_paths=self._base_paths)
+        self._molecules = amol.infer_molecules(positions)
+        lp: dict = {}
+        for (b, li), ps in positions.items():
+            lp.setdefault(li, {})[b] = ps
+        self._line_positions = lp
+        return self._molecules
+
+    def stage_supergraph(self, bg: dgraph.BaseGraph, rp: pather.ReadPaths, rs: ReadSet):
+        """The reference's stage_supergraph (run.py:748-980), step for step:
+        dup marking, bad reads, closures (cpaths.npz), weak-edge trims, D
+        glued from the closures (the closure glue on the device above
+        DEVICE_GLUE_MIN_POSITIONS closure positions, asm/nucleate.py) or
+        compacted from the graph, the cleanup passes, lines and their
+        misassembly break, dpaths.npz, the molecules and supergraph.npz ->
+        (D, lines, dup).  With resume=True it re-enters from supergraph.npz
+        and dpaths.npz when they belong to these reads and this graph.  The
+        stage's record and stats get the glue's route (glue_route:
+        "device", "device_overflow" or "host"), its overflow counts
+        (glue_overflow; the stats hold their sum) and its closure
+        positions (glue_positions)."""
+        n = rs.n_reads
+        edges, plen, offset = (x[:n] for x in convert.readpaths_to_numpy(rp)[:3])
+        self._base_paths = (edges, plen, offset)  # for lbpx-resolution positions
+
+        ck = self.outdir / "supergraph.npz"
+        dck = self.outdir / "dpaths.npz"
+        if self.resume and ck.exists() and dck.exists():
+            got = self._resume_supergraph(bg, rs, ck, dck)
+            if got is not None:
+                return got
+        log_sg = lambda name, value, *a, **kw: self.stats.log(
+            name, value, *a, stage="supergraph", **kw)
+        dup = adups.mark_dups(edges, plen, offset, rs.bc)
+        log_sg("dup_frac", adups.dup_fraction(dup), "duplicate pair fraction")
+        med_ins, proper = adups.insert_size_stats(bg, edges, plen, offset)
+        if med_ins is not None:
+            log_sg("median_ins_sz", med_ins, "median insert size", cs=True)
+            log_sg("proper_pairs_perc", 100.0 * proper, "% placed pairs properly paired",
+                   cs=True)
+        counts = pindex.edge_read_counts(edges, plen, bg.n_edges)
+
+        # closure paths first (a.cpaths analogue); bad pairs excluded like
+        # dups (MakeClosures uses non-dup non-bad pairs, SecretOps.cc:1049)
+        bad = abads.mark_bads(bg, rs, edges, plen, offset)
+        log_sg("bad_read_frac", float(bad.mean()) if len(bad) else 0.0,
+               "reads contradicting the assembly")
+        bad_pair = bad[0::2] | bad[1::2]
+        cl = aclos.make_closures(bg, edges, plen, dup | bad_pair)
+        aclos.save_closures(self.outdir / "cpaths.npz", cl)
+        self._closures = cl  # a.cpaths analogue, consumed by Splat
+        log_sg("n_closures", len(cl), "closure paths")
+
+        keep = asg.trim_weak_edges(bg, counts)
+        # TR trimming ahead of MC: closures riding Lawnmower-trimmed WEAK
+        # FORK branches are error evidence — drop them (dead-end tips stay:
+        # genuine sequence ends are tips too)
+        keep_forks = asg.trim_weak_edges(bg, counts, tips=False)
+        if cl and not keep_forks.all():
+            n0 = len(cl)
+            cl = [c for c in cl if bool(keep_forks[np.asarray(c, np.int64)].all())]
+            if n0 != len(cl):
+                log_sg("closures_trimmed", n0 - len(cl), "closures dropped on trimmed edges")
+        if cl:
+            # faithful MC construction: glue closures into D
+            glue: dict = {}
+            D = asg.closures_to_graph(bg, cl, device=self.device, info=glue)
+            log_sg("supergraph_mode", "closures")
+            if glue:
+                self.stage_records.setdefault("supergraph", {}).update(glue)
+                log_sg("glue_route", glue["glue_route"], "closure glue route")
+                log_sg("glue_overflow", sum(glue["glue_overflow"]),
+                       "closure pairs past the device glue's budgets")
+                log_sg("glue_positions", glue["glue_positions"], "closure positions glued")
+        else:
+            D = asg.build_supergraph(bg, keep)
+            # flatten lopsided (error-artifact) bubbles and rebuild once
+            support = asg.super_edge_support(D, counts)
+            keep2, n_flat = abub.flatten_bubbles(bg, keep, D, support)
+            if n_flat:
+                keep = keep2
+                D = asg.build_supergraph(bg, keep)
+                log_sg("bubbles_flattened", n_flat, "weak bubble arms removed")
+        D.validate()
+
+        # Cleaner passes: hang trimming, weak bubble arms (3:0 rule),
+        # inversion-bubble zapping, iterated to a fixpoint; then
+        # KillInversionArtifacts (needs barcode support)
+        rbc = rs.bc if rs.barcoded else None
+        place_fn = lambda Dx: aplace.place_reads(Dx, edges, plen, read_bc=rbc)
+        D, n_cleaned = aclean.clean_supergraph(D, place_fn)
+        if n_cleaned:
+            D.validate()
+            log_sg("super_edges_cleaned", n_cleaned, "D-edges removed by cleanup passes")
+        dpaths, dlen = place_fn(D)
+        dels = ainv.kill_inversion_artifacts(D, dpaths, dlen, rbc)
+        if dels:
+            D = ainv.delete_edges(D, dels)
+            D.validate()
+            dpaths, dlen = place_fn(D)
+            log_sg("inversion_edges_deleted", len(dels), "inversion-artifact D-edges removed")
+
+        # PullApart (read-pair repeat separation) + Decycle
+        D2, n_pulls = apull.pull_apart(D, dpaths, dlen)
+        if n_pulls:
+            D = D2
+            D.validate()
+            dpaths, dlen = place_fn(D)
+            log_sg("n_pullaparts", n_pulls)
+        dc = apull.decycle(D, dpaths, dlen)
+        if dc:
+            D = ainv.delete_edges(D, dc)
+            D.validate()
+            dpaths, dlen = place_fn(D)
+            log_sg("n_decycled", len(dc))
+
+        # loop capture: abstract remaining loop subgraphs into {-4} cells so
+        # lines run straight through them (CaptureLoops, 10X/Capture.cc)
+        D2, n_cap = acap.capture_loops(D)
+        if n_cap:
+            D = D2
+            D.validate()
+            dpaths, dlen = place_fn(D)
+            log_sg("n_loops_captured", n_cap, "loop subgraphs captured into cell gap edges")
+        D2m, n_messy = acap.capture_messy_loops(D)
+        if n_messy:
+            D = D2m
+            D.validate()
+            dpaths, dlen = place_fn(D)
+            log_sg("n_messy_loops_captured", n_messy,
+                   "tangles between long lines captured into cells")
+
+        lines = alines.find_lines(D)
+        log_sg("n_super_edges", D.n_edges)
+        log_sg("n_lines", lines.n_lines)
+
+        # misassembly breaking: split lines at junctions with no spanning
+        # barcodes (KillMisassembledCells analogue)
+        if rs.barcoded:
+            ebcx = pindex.edge_barcodes(edges, plen, rs.bc, bg.n_edges)
+            sup_bcs = asg.super_edge_barcodes(D, ebcx)
+            pos0 = amol.read_line_positions(D, lines, dpaths, dlen, rs.bc,
+                                            base_paths=self._base_paths)
+            lines = amis.break_lines(lines, D, sup_bcs, line_positions=pos0)
+            log_sg("n_lines_after_break", lines.n_lines)
+
+        # dpaths already computed above (re-placed after any inversion cleanup)
+        self._dpaths, self._dlen = dpaths, dlen
+        np.savez_compressed(dck, dpaths=dpaths, dlen=dlen,
+                            counts=aplace.dpath_counts(D, dpaths, dlen))
+
+        # barcode molecules on lines (lbpx analogue)
+        if rs.barcoded:
+            mols = self._set_molecules(D, lines, dpaths, dlen, rs)
+            if mols:
+                self.stats.log("lw_mean_mol_len", amol.lw_mean_length(mols),
+                               "length-weighted mean molecule length", cs=True)
+                lm = sgems.estimate_loading_mass_ng(mols)
+                if lm is not None:
+                    self.stats.log("loading_mass", lm, "estimated input DNA loading mass (ng)")
+                h = hist.length_histogram(np.array([m.length for m in mols]), bin_width=500)
+                (self.outdir / "stats").mkdir(exist_ok=True)
+                hist.write_hist_json(self.outdir / "stats" / "histogram_molecules.json",
+                                     "inferred molecule lengths", h["bins"], h["counts"])
+        np.savez_compressed(ck, epaths_values=D.epaths.values, epaths_offsets=D.epaths.offsets,
+                            dinv=D.dinv, from_v=D.from_v, to_v=D.to_v, keep=keep, dup=dup)
+        return D, lines, dup
 
     def stage_fasta(self, bg: dgraph.BaseGraph, flavor: str = "raw") -> Path:
         """assembly.raw.fasta.gz: one record per rc pair of edges (reference

@@ -450,3 +450,66 @@ def test_patch_rebuild_cuda_equals_cpu(dev):
         assert np.array_equal(getattr(bg_g, f), getattr(bg_c, f)), f
     assert np.array_equal(bg_g.edges.values, bg_c.edges.values)
     assert np.array_equal(bg_g.edges.offsets, bg_c.edges.offsets)
+
+
+def glue_case(seed, size, repeats, n, max_len):
+    """tests/test_nucleate_property.py's graph and random-walk closures
+    (the glue parity cases of tests/test_torch_supergraph.py), from the
+    port's copies: error-free tiling reads every 23 bases of a genome with
+    repeats, counted at min_freq 2."""
+    from supernova_tpu_torch.core import dna
+    from supernova_tpu_torch.dbg import build as dbuild
+    from supernova_tpu_torch.dbg import graph as dgraph
+    from supernova_tpu_torch.ingest.reads import build_readset
+
+    rng = np.random.default_rng(seed)
+    g = sim.random_genome(rng, size, n_repeat_chunks=repeats, repeat_len=150)
+    starts = list(range(0, len(g) - 150 + 1, 23))
+    if starts[-1] != len(g) - 150:
+        starts.append(len(g) - 150)
+    reads = [r for s in starts for r in (g[s:s + 150].copy(), dna.revcomp(g[s:s + 150]).copy())]
+    rs = build_readset(reads, [np.full(150, 37, np.uint8)] * len(reads),
+                       np.zeros(len(reads) // 2, np.int32), n_barcodes=0, barcoded=False)
+    table = dbuild.trim_table(kcount.count_readset(rs, "cpu", min_freq=2), pad_multiple=256)
+    bg = dgraph.from_device(dbuild.build_graph(table), table)
+    nxt = {e: [int(f) for f in np.nonzero(bg.from_v == bg.to_v[e])[0]] for e in range(bg.n_edges)}
+    closures = []
+    for _ in range(n):
+        walk = [int(rng.integers(bg.n_edges))]
+        for _ in range(int(rng.integers(1, max_len))):
+            if not nxt[walk[-1]]:
+                break
+            walk.append(int(rng.choice(nxt[walk[-1]])))
+        closures.append(tuple(walk))
+    return bg, closures
+
+
+@pytest.mark.parametrize("case", [(1, 4000, 2, 50, 8, 100), (4, 4000, 2, 50, 8, 100),
+                                  (9, 4000, 2, 50, 8, 100), (0, 6000, 3, 80, 12, None)])
+def test_glue_cuda_equals_cpu(dev, case, monkeypatch):
+    """The closure glue on the card (K4 and K2) gives the labels of its
+    plain twin on CPU tensors, and nucleate_graph's gate sends a CUDA
+    device to it (threshold lowered to 0 here) with the host core's D."""
+    from supernova_tpu_torch.asm import nucleate as anuc
+    from supernova_tpu_torch.parallel import device_nucleate as dn
+
+    *gcase, mob = case
+    bg, closures = glue_case(*gcase)
+    adaptive = mob is None
+    cls = anuc.sanitize_closures(bg, closures)
+    mo = anuc.MIN_OVER_BASES if adaptive else mob
+    kernels.reset_launch_counts()
+    got = dn.glue_closures_device(bg, cls, mo, adaptive, dev)
+    counts = kernels.launch_counts()
+    assert counts["sort"] >= 4 and counts["compact"] == 1
+    want = dn.glue_closures_device(bg, cls, mo, adaptive, "cpu")
+    assert got is not None and np.array_equal(got, want)
+    monkeypatch.setattr(anuc, "DEVICE_GLUE_MIN_POSITIONS", 0)
+    info = {}
+    D = anuc.nucleate_graph(bg, closures, min_over_bases=mob, device=dev, info=info)
+    assert info["glue_route"] == "device"
+    H = anuc.nucleate_graph(bg, closures, min_over_bases=mob, device_glue=False)
+    for f in ("dinv", "from_v", "to_v"):
+        assert np.array_equal(getattr(D, f), getattr(H, f)), f
+    assert np.array_equal(D.epaths.values, H.epaths.values)
+    assert np.array_equal(D.epaths.offsets, H.epaths.offsets)

@@ -2,9 +2,11 @@
 dna/ragged/pqvec, stats gems/histograms/logger, the feudal 2-bit packing,
 align rescue/pathzip/index, asm bads/dups/stackster and patch's host half,
 out fasta, ingest fastq/tenx/discovery, pipeline preflight, the native FASTQ
-decoder) against their originals: the same source apart from the note that
+decoder, the supergraph stage's asm modules and the native glue core)
+against their originals: the same source apart from the note that
 names the original, and the same outputs on the same inputs."""
 import gzip
+import importlib
 import inspect
 import json
 import shutil
@@ -70,7 +72,10 @@ COPIES = ["core/dna.py", "core/ragged.py", "core/pqvec.py", "ingest/reads.py",
           "ingest/ingest.py", "ingest/barcodes.py", "sim/genome.py", "stats/gems.py",
           "stats/histograms.py", "stats/logger.py", "align/rescue.py", "align/pathzip.py",
           "align/index.py", "asm/bads.py", "out/fasta.py", "ingest/fastq.py", "ingest/tenx.py",
-          "ingest/discovery.py", "pipeline/preflight.py", "asm/dups.py", "asm/stackster.py"]
+          "ingest/discovery.py", "pipeline/preflight.py", "asm/dups.py", "asm/stackster.py",
+          "asm/gap.py", "asm/lines.py", "asm/molecules.py", "asm/place.py", "asm/closures.py",
+          "asm/bubbles.py", "asm/inversion.py", "asm/clean.py", "asm/pullapart.py",
+          "asm/capture.py", "asm/local.py"]
 
 
 @pytest.mark.parametrize("path", COPIES)
@@ -112,6 +117,42 @@ def test_native_decoder_is_the_original():
     for mod in (r_native, p_native):
         with pytest.raises(ValueError):
             mod.decode_fastq_bytes(b"not a fastq\nACGT\n")
+
+
+def test_nucleate_core_is_the_original():
+    """The same load_nucleate and the same glue core source, built into the
+    port's _build/."""
+    same_sources(r_native, p_native, ("load_nucleate",))
+    assert (REPO / "supernova_tpu_torch/native/nucleate_core.cpp").read_bytes() == (
+        REPO / "supernova_tpu/native/nucleate_core.cpp").read_bytes()
+    assert p_native.load_nucleate() is not None
+
+
+def module_defs(mod):
+    """Names of the functions and classes a module defines."""
+    return {n for n, o in vars(mod).items()
+            if (inspect.isfunction(o) or inspect.isclass(o)) and o.__module__ == mod.__name__}
+
+
+@pytest.mark.parametrize("mod,ported", [
+    ("supergraph", {"closures_to_graph"}), ("nucleate", {"nucleate_graph"}),
+    ("misassembly", {"find_weak_junctions_positional", "break_lines"})])
+def test_supergraph_nucleate_misassembly_are_the_original(mod, ported):
+    """asm/supergraph.py and asm/nucleate.py apart from the device seam
+    (closures_to_graph and nucleate_graph, which take the device), and
+    asm/misassembly.py apart from the positional rule's loops;
+    tests/test_torch_supergraph.py holds those to the reference."""
+    ref = importlib.import_module(f"supernova_tpu.asm.{mod}")
+    port = importlib.import_module(f"supernova_tpu_torch.asm.{mod}")
+    names = module_defs(ref) - ported
+    assert module_defs(port) - ported == names and len(names) >= 3
+    same_sources(ref, port, sorted(names))
+    consts = {"supergraph": (), "misassembly": (
+        "MIN_SPAN_BC", "BC_FLANK", "BC_IGNORE", "BC_REQUIRE", "BC_MIN", "BC_MAX_CELL",
+        "ESCALATION_TIERS"), "nucleate": ("MIN_OVER_BASES", "_MAX_LONG_PARTNERS",
+                                          "LOOK_MERGE_BASES", "LOOK", "MIN_OVER_FLOOR_BASES")}
+    for name in consts[mod]:
+        assert getattr(ref, name) == getattr(port, name), name
 
 
 def test_patch_host_half_is_the_original():

@@ -183,9 +183,10 @@ def test_cuda_device_raises_without_a_card(tmp_path):
 
 def test_port_never_imports_jax():
     """Importing the port, running a count, single-block and blocked, and
-    then 10x FASTQs through preflight, ingest, Pipeline.run and stage_patch
-    leaves jax and every supernova_tpu module out of sys.modules (needs its
-    own process: conftest imports jax and the JAX package)."""
+    then 10x FASTQs through preflight, ingest, Pipeline.run, stage_patch
+    and stage_supergraph, and the closure glue on the device route, leaves
+    jax and every supernova_tpu module out of sys.modules (needs its own
+    process: conftest imports jax and the JAX package)."""
     code = """
 import sys
 import tempfile
@@ -193,10 +194,14 @@ import numpy as np
 from supernova_tpu_torch.sim import genome as sim
 from supernova_tpu_torch.ingest.reads import build_readset
 import supernova_tpu_torch.asm.stackster
+import supernova_tpu_torch.asm.nucleate as nucleate
+import supernova_tpu_torch.asm.supergraph
+import supernova_tpu_torch.parallel.device_nucleate
 import supernova_tpu_torch.ingest.discovery
 import supernova_tpu_torch.pipeline.run
 import supernova_tpu_torch.pipeline.datasets
 import supernova_tpu_torch.stats.profile_slice
+import supernova_tpu_torch.stats.profile_supergraph
 import supernova_tpu_torch.convert
 from supernova_tpu_torch.ingest.barcodes import Whitelist
 from supernova_tpu_torch.ingest.tenx import ingest_10x_fastqs, write_sim_fastqs
@@ -225,8 +230,13 @@ with tempfile.TemporaryDirectory() as d:
     rs = ingest_10x_fastqs([r1], [r2], Whitelist.from_codes(wlc))
     bg, fasta = Pipeline(d + "/asm", device="cpu").run(rs)
     pl = Pipeline(d + "/asm", device="cpu", resume=True)
-    pl.stage_patch(bg, pl.stage_paths(bg, rs), rs)
+    bg, rp = pl.stage_patch(bg, pl.stage_paths(bg, rs), rs)
     assert fasta.exists() and pl.stats.get("gap_pairs") is not None
+    D, lines, dup = pl.stage_supergraph(bg, rp, rs)
+    assert pl.stats.get("supergraph_mode") == "closures" and lines.n_lines > 0
+    info = {}
+    nucleate.nucleate_graph(bg, pl._closures, None, device_glue=True, device="cpu", info=info)
+    assert info["glue_route"] == "device"
 print("jax" in sys.modules, sorted(m for m in sys.modules
                                     if m.split(".")[0] in ("jax", "jaxlib", "supernova_tpu")))
 """

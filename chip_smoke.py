@@ -25,7 +25,14 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      paths.npz and ebcx.npz and the paths stats identical; then the same
      on the genome cut to mixed lengths (every R1 23 bases shorter, as
      ingest leaves a real 10x R1) with 300k-position blocks, so both take
-     the blocked mixed count and the blocked general pather;
+     the blocked mixed count and the blocked general pather; then
+     [small run_full]: Pipeline.run_full on CUDA and on the CPU for the
+     e2e genome (5 kb diploid; the legacy scaffolder) and the star-gap
+     fixture (30 kb with a void; the fifteen scaffold phases): the four
+     FASTA files and summary.json (timing keys aside) identical, and every
+     kernel launched by each CUDA run; then the star-gap CUDA outdir
+     resumed with the early phases poisoned: it re-enters after the last
+     phase, runs none, launches nothing and writes the same FASTA bytes;
   5. the slice at one block — a 2 Mb diploid genome (het 0.001), 600
      barcodes x 10 molecules x 50 kb, ~600k 150 bp reads, ~45x — through
      Pipeline(device="cuda").run(): per-stage wall time and peak memory,
@@ -37,9 +44,10 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      Pipeline), and every kernel launched (launch counters reset just
      before the run);
   6. [fastq run], the main path: the genome (pipeline/datasets.py GENOME:
-     10 Mb, 3,000 barcodes, ~3M reads, ~450M bases, ~45x) written as 10x
-     FASTQs in LANES bcl2fastq-named lanes by the port's write_sim_fastqs
-     (one process a lane), found by discover_input_fastqs, checked by
+     10 Mb, 3,000 barcodes, ~3M reads, ~450M bases, ~45x) simulated and
+     written as 10x FASTQs in LANES bcl2fastq-named lanes by the port's
+     write_sim_fastqs (one process a lane) in a process started before
+     phase 2, beside phases 2-5 and 10, then found by discover_input_fastqs, checked by
      preflight and read by ingest_10x_fastqs (walls); then the checks of 5
      through run(), which takes the blocked count (>= 2 blocks spilled,
      one device merge) and the blocked pather; then stage_patch on the
@@ -56,10 +64,24 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      twin's on CPU tensors, and K4 (steps 1, 3, 4 and the zipper's sort)
      and K2 (the seed compaction) against their twins at the inputs the
      glue gave them, timed beside their bounds and, for the 2-key sorts, a
-     stable torch.sort of the packed pair.  [resume]: run() again on the
+     stable torch.sort of the packed pair; K4 also at step 6's one-key
+     sort of the candidates' overlaps, beside a stable torch.sort of the
+     key.  [resume]: run() again on the
      same outdir with resume=True: no launch in the count and graph
      stages, no K3 or K2 in the paths stage, the same FASTA bytes; then
-     stage_supergraph resumed: no launch, the same D and lines.  [patch
+     stage_supergraph resumed: no launch, the same D and lines.
+     [scaffold]: run_full on that outdir with resume=True (the patched
+     graph's paths.npz put back after [resume]'s run() re-pathed the base
+     graph): the count and graph stages reload and launch nothing, the
+     paths stage is skipped, the patch and supergraph stages re-enter with
+     no launch, and the scaffold stage runs on the genome: its phases'
+     walls and snapshots, scaffolds, line_line_N50, Flipper phasing, the
+     het DP on the card (equal to the same DP on CPU tensors, on the
+     genome's own bubble pairs; pairs, shape, seconds), the four FASTA
+     flavors (A/C/G/T/N only), the GFA files, the super files, the
+     histograms and summary.json written, hetdist_aligned logged, and the
+     share of pseudohap contigs (split at N, > 400 bp) that are exact
+     substrings of a simulated haplotype strand.  [patch
      kernels]: K1-K4 against their twins at the rebuild count's shapes
      (one strand of every edge plus the closures, unbarcoded, min_freq 1,
      min_read_len K).  The genome's later phases use this FASTQ-ingested
@@ -77,9 +99,10 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      then the general pather, with and without the tail cut, equal to the
      fused one on the genome's first block;
   8. the genome cut to mixed lengths, on the reads of the barcodes that
-     hold its first 65% (~1.95M reads, ~270M bases, three count blocks;
+     hold its first 45% (~1.35M reads, ~187M bases, two count blocks;
      the whole cut genome, 415.5M bases in five blocks, cost 135 s of the
-     script's 1,007 s on one H100, 84% of its 1,200 s limit): first each
+     script's 1,007 s on one H100, 84% of its 1,200 s limit, and [scaffold]
+     added ~250 s): first each
      kernel against its twin at the shapes its first block gives them
      (every position a sort row, the sorted stream ending in one sentinel
      run; K3 with (1, 0) and with the filter, then alone on the real rows,
@@ -93,7 +116,8 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
   9. build_links on the genome's table at the card's budget (one join)
      and with the successor resolve in >= 4 chunks: equal links, each
      run's peak bytes a joined row within LINK_BYTES_PER_ROW;
- 10. the partitioned merge at the size of the reference's 30 Mb run
+ 10. (run after 5, while the genome is simulated) the partitioned merge
+     at the size of the reference's 30 Mb run
      (artifacts/val30mb_r5/run.log): 15 sorted synthetic raw blocks built
      on the card and spilled, 473,961,288 raw rows, 31,200,000 "genome"
      kmers in 13 of the 15 blocks each (kept) and single-block count-1
@@ -124,6 +148,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 KERNELS = {
     "kmer_extract": ("supernova_tpu_torch/csrc/kmer_extract.cu",
@@ -184,7 +209,8 @@ def max_abs_err(torch, pairs):
 def check_sort(torch, keys, shape):
     """K4 against its twin on `keys`: exactly equal permutations; the
     yardstick is torch.sort of the first two keys packed into one int64
-    (the 2-key lexicographic argsort in one call; packed beforehand)."""
+    (the 2-key lexicographic argsort in one call; packed beforehand), or of
+    the one key."""
     from supernova_tpu_torch.ops.kernels import sort as k4
 
     got = k4.lex_argsort_cuda(*keys)
@@ -193,7 +219,7 @@ def check_sort(torch, keys, shape):
     err = max_abs_err(torch, [(got, ref)])
     check(torch.equal(got, ref), f"K4 differs from plain at {shape}")
     rows = keys[0].shape[0]
-    packed = k4._pair(keys[0], keys[1])
+    packed = k4._pair(keys[0], keys[1]) if len(keys) > 1 else keys[0]
     res = dict(
         shape=shape, max_abs_err=err,
         ms=median_ms(torch, lambda: k4.lex_argsort_cuda(*keys)),
@@ -201,7 +227,8 @@ def check_sort(torch, keys, shape):
         # read every key once, write the int64 permutation
         bound_ms=bound_ms(rows * 8 * (len(keys) + 1)),
         library_ms=median_ms(torch, lambda: torch.sort(packed, stable=True).indices),
-        library_shape=f"torch.sort(stable=True) of keys 0-1 packed in one int64, {rows} rows",
+        library_shape=(f"torch.sort(stable=True) of keys 0-1 packed in one int64, {rows} rows"
+                       if len(keys) > 1 else f"torch.sort(stable=True) of the key, {rows} rows"),
     )
     print_kernel("sort", res)
     print_launches(torch, "sort", lambda: k4.lex_argsort_cuda(*keys))
@@ -571,9 +598,9 @@ def phase_small_slice(torch, rs, tag="small", block_positions=None):
 PATHS_STATS = ("paths_rescued", "paths_extended", "placed_perc")
 
 
-def check_fasta(path, tag):
-    """assembly.raw.fasta.gz: nonempty records of A/C/G/T only -> (records,
-    bases, N50 of the record lengths)."""
+def check_fasta(path, tag, alphabet="ACGT"):
+    """A FASTA file (assembly.raw.fasta.gz by default): nonempty records of
+    `alphabet` only -> (records, bases, N50 of the record lengths)."""
     from supernova_tpu_torch.out import fasta as fout
     from supernova_tpu_torch.stats.logger import n50
 
@@ -581,7 +608,8 @@ def check_fasta(path, tag):
     check(recs, f"{tag}: no FASTA records")
     lens = [len(seq) for _, seq in recs]
     check(min(lens) > 0, f"{tag}: an empty FASTA record")
-    check(set("".join(seq for _, seq in recs)) <= set("ACGT"), f"{tag}: FASTA not 2-bit clean")
+    check(set("".join(seq for _, seq in recs)) <= set(alphabet),
+          f"{tag}: FASTA holds letters outside {alphabet}")
     return len(recs), sum(lens), n50(lens)
 
 
@@ -679,6 +707,35 @@ def write_lanes(reads, root):
         _LANE_READS = None
 
 
+def _simulate_and_write(root):
+    """The genome's reads simulated and written as LANES lanes of FASTQs
+    under root/fastqs, its whitelist to root/whitelist.npy and the walls to
+    root/simulate.json (run in a process of its own while the main process
+    runs the phases before [fastq run])."""
+    import numpy as np
+    from supernova_tpu_torch.pipeline import datasets
+
+    t0 = time.perf_counter()
+    reads, wl = datasets.simulate_reads(datasets.GENOME, datasets.GENOME_SEED)
+    sim_s = time.perf_counter() - t0
+    n_pairs = reads.n_pairs()
+    t0 = time.perf_counter()
+    write_lanes(reads, f"{root}/fastqs")
+    np.save(f"{root}/whitelist.npy", wl)
+    Path(root, "simulate.json").write_text(json.dumps(
+        {"pairs": n_pairs, "simulate_s": sim_s, "write_s": time.perf_counter() - t0}))
+
+
+def start_fastq_writer(root):
+    """Start _simulate_and_write(root) in a forked process (it touches no
+    CUDA state, as write_lanes' writers do not) -> the process."""
+    import multiprocessing
+
+    proc = multiprocessing.get_context("fork").Process(target=_simulate_and_write, args=(root,))
+    proc.start()
+    return proc
+
+
 def fasta_bytes(path):
     import gzip
 
@@ -686,29 +743,30 @@ def fasta_bytes(path):
         return f.read()
 
 
-def phase_fastq_run(torch, dev, outdir):
-    """The genome from 10x FASTQs through the port's own ingest, then
-    Pipeline(device="cuda").run() and stage_patch: the main path.  Returns
-    (launches of run() + stage_patch, count record, host table, BaseGraph,
-    ReadSet, the patch stage's record)."""
+def phase_fastq_run(torch, dev, outdir, writer):
+    """The genome from 10x FASTQs (simulated and written by `writer`, the
+    process start_fastq_writer(outdir) started) through the port's own
+    ingest, then Pipeline(device="cuda").run() and stage_patch: the main
+    path.  Returns (launches of run() + stage_patch, count record, host
+    table, BaseGraph, ReadSet, the patch stage's record)."""
     import numpy as np
     from supernova_tpu_torch.ingest.barcodes import Whitelist
     from supernova_tpu_torch.ingest.discovery import discover_input_fastqs
     from supernova_tpu_torch.ingest.tenx import ingest_10x_fastqs
     from supernova_tpu_torch.ops import kernels
-    from supernova_tpu_torch.pipeline import datasets
     from supernova_tpu_torch.pipeline.preflight import preflight
     from supernova_tpu_torch.pipeline.run import Pipeline
 
     t0 = time.perf_counter()
-    reads, wl = datasets.simulate_reads(datasets.GENOME, datasets.GENOME_SEED)
-    print(f"[fastq run] genome: {reads.n_pairs()} read pairs simulated in "
-          f"{time.perf_counter() - t0:.1f} s")
+    writer.join()
+    check(writer.exitcode == 0, f"fastq run: the FASTQ writer exited {writer.exitcode}")
+    wait_s = time.perf_counter() - t0
+    sim = json.loads(Path(outdir, "simulate.json").read_text())
+    wl = np.load(f"{outdir}/whitelist.npy")
+    write_s = sim["write_s"]
+    print(f"[fastq run] genome: {sim['pairs']} read pairs simulated in {sim['simulate_s']:.1f} s "
+          f"in a process of its own, beside the earlier phases (waited {wait_s:.1f} s for it)")
     fq = f"{outdir}/fastqs"
-    t0 = time.perf_counter()
-    write_lanes(reads, fq)
-    write_s = time.perf_counter() - t0
-    del reads
     size = sum(os.path.getsize(f"{fq}/{f}") for f in os.listdir(fq) if f.endswith(".gz"))
     t0 = time.perf_counter()
     found = discover_input_fastqs(fq)
@@ -844,9 +902,12 @@ def glue_inputs(bg, rp, rs, outdir):
     return cl, anuc.sanitize_closures(bg, cl)
 
 
-# the glue's sorts, in call order: name by the number of keys of the call
+# the glue's first sorts, in call order; then step 6's one-key sort (the
+# adaptive gate's candidates) and the zipper's first 2-key sort
 GLUE_SORTS = ("step 1 (edge, closure)", "step 3 (edge, closure, pos)",
               "step 4 (c1, c2, off)")
+GLUE_STEP6 = "step 6 gate (over)"
+GLUE_ZIPPER = "step 10 zipper (head, edge)"
 
 
 def phase_glue(torch, dev, sg, rs, outdir, res):
@@ -855,9 +916,9 @@ def phase_glue(torch, dev, sg, rs, outdir, res):
     labels of glue_closures_device on the card against its plain twin on
     CPU tensors, exactly; and K4 and K2 against their twins at the inputs
     the glue gave them (recorded by wrapping the module's lex_argsort and
-    compact), each timed beside its bound and, for the 2-key sorts, a
-    stable torch.sort of the packed pair.  Adds glue_* keys to the sort and
-    compact entries of `res`."""
+    compact), each timed beside its bound and, for the 1- and 2-key sorts,
+    a stable torch.sort of the key or the packed pair.  Adds glue_* keys to
+    the sort and compact entries of `res`."""
     import numpy as np
     from supernova_tpu_torch.asm import nucleate as anuc
     from supernova_tpu_torch.ops import kernels
@@ -886,9 +947,13 @@ def phase_glue(torch, dev, sg, rs, outdir, res):
 
     def sort_spy(*keys):
         calls.append(len(keys))
-        # the first three sorts and the first 2-key sort after them (the zipper)
-        if len(calls) <= len(GLUE_SORTS) or (len(keys) == 2 and len(kept) == len(GLUE_SORTS)):
-            kept.append(keys)
+        labels = [label for label, _ in kept]
+        if len(calls) <= len(GLUE_SORTS):
+            kept.append((GLUE_SORTS[len(calls) - 1], keys))
+        elif len(keys) == 1 and GLUE_STEP6 not in labels:
+            kept.append((GLUE_STEP6, keys))
+        elif len(keys) == 2 and GLUE_ZIPPER not in labels:
+            kept.append((GLUE_ZIPPER, keys))
         return lex_argsort(*keys)
 
     def compact_spy(valid, *cols, **kw):
@@ -920,6 +985,8 @@ def phase_glue(torch, dev, sg, rs, outdir, res):
     check(np.array_equal(lab_dev, lab_cpu), "glue: labels on the card differ from the CPU twin's")
     n_classes = len(np.unique(lab_dev))
     zips = calls[len(GLUE_SORTS):].count(2) // 2
+    check({GLUE_STEP6, GLUE_ZIPPER} <= {label for label, _ in kept},
+          f"glue: sorts of {calls} keys: no one-key gate sort or no zipper sort")
     rows = info["rows"]
     per_row = peak / max(sum(rows), 1)
     print(f"[supergraph] glue labels on the card == the plain twin's on the CPU: "
@@ -931,10 +998,10 @@ def phase_glue(torch, dev, sg, rs, outdir, res):
           f"{rows[2]} ({rows[2] / info['positions']:.2f} P); peak device memory "
           f"{peak / 2**30:.3f} GiB above its inputs, {per_row:.1f} B a row")
     rows = []
-    for label, keys in zip(GLUE_SORTS + ("step 10 zipper (head, edge)",), kept):
+    for label, keys in kept:
         shape = f"{keys[0].shape[0]} rows x {len(keys)} keys (glue {label})"
         r, _ = check_sort(torch, [k.contiguous() for k in keys], shape)
-        if len(keys) != 2:  # a 2-key library sort is not the same function
+        if len(keys) > 2:  # a 2-key library sort is not the same function
             r["library_ms"] = None
         rows.append({k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                        "library_ms")})
@@ -958,11 +1025,16 @@ def phase_resume(torch, rs, outdir, sg):
 
     asm = f"{outdir}/asm"
     want = fasta_bytes(f"{asm}/assembly.raw.fasta.gz")
+    # run() re-paths the base graph over the patched graph's paths.npz and
+    # ebcx.npz; they are put back after it for [scaffold]'s run_full
+    patched_paths = {name: Path(asm, name).read_bytes() for name in ("paths.npz", "ebcx.npz")}
     kernels.reset_launch_counts()
     pl = Pipeline(asm, device="cuda", resume=True)
     t0 = time.perf_counter()
     _, fasta = pl.run(rs)
     wall = time.perf_counter() - t0
+    for name, data in patched_paths.items():
+        Path(asm, name).write_bytes(data)
     for name, rec in pl.stage_records.items():
         print(f"[resume] stage {name}: wall {rec['wall_s']:.3f} s, peak device memory "
               f"{rec['peak_gb']:.3f} GiB, launches {rec['launches']}")
@@ -987,6 +1059,183 @@ def phase_resume(torch, rs, outdir, sg):
     print(f"[resume] stage_supergraph: wall {rec['wall_s']:.3f} s, no launch: supergraph.npz "
           f"and dpaths.npz reloaded, the same D ({D.n_edges} edges) and {lines.n_lines} lines "
           f"(the break and the molecules recomputed on the host)")
+
+
+FLAVOR_FILES = ("assembly.raw.fasta.gz", "assembly.megabubbles.fasta.gz",
+                "assembly.pseudohap.fasta.gz", "assembly.pseudohap2.fasta.gz")
+RUN_FULL_FILES = ("graph.gfa.gz", "supergraph.gfa.gz", "assembly_state.pkl", "summary.json",
+                  "stats/histogram_contig.json", "stats/histogram_scaffold.json",
+                  "stats/histogram_edge.json", "stats/histogram_phase_block.json",
+                  "stats/histogram_reads_per_barcode.json", "final/a.sup.lines.npz")
+
+
+def gib(x):
+    """A stage record's peak (None off CUDA) for printing."""
+    return "n/a" if x is None else f"{x:.3f}"
+
+
+def haplotype_share(fasta, strands, min_len=400):
+    """The pseudohap contigs (records split at N) longer than min_len, and
+    how many are exact substrings of one of `strands`."""
+    from supernova_tpu_torch.out import fasta as fout
+
+    contigs = [c for _, seq in fout.read_fasta(fasta) for c in seq.split("N")
+               if len(c) > min_len]
+    return len(contigs), sum(any(c in s for s in strands) for c in contigs)
+
+
+def phase_scaffold(torch, dev, rs, outdir):
+    """run_full on the fastq run's outdir with resume=True: the count and
+    graph stages reload their checkpoints and launch nothing, the paths
+    stage is skipped, the patch and supergraph stages re-enter from their
+    checkpoints with no launch, and the scaffold stage runs its phases on
+    the genome (each snapshotted), then phasing and the het DP on the card
+    (held to the same DP on CPU tensors on the genome's own bubble pairs);
+    the four FASTA flavors (A/C/G/T/N only), the GFA files, the super
+    files, the histograms and summary.json are written.  Prints each
+    phase's wall and the share of pseudohap contigs (split at N, > 400 bp)
+    that are exact substrings of a simulated haplotype strand.  (A resumed
+    run re-entering after the last phase is checked on the star-gap
+    fixture in [small run_full]: the genome takes the legacy scaffolder,
+    after which a resumed run first re-enters after starstar and runs the
+    other phases, as the reference's does, so two more genome-scale
+    run_full calls would be needed; PERF.md section 4.)"""
+    import numpy as np
+    from supernova_tpu_torch.asm import het as ahet
+    from supernova_tpu_torch.core import dna
+    from supernova_tpu_torch.ops import alignment as al
+    from supernova_tpu_torch.ops import kernels
+    from supernova_tpu_torch.pipeline import datasets
+    from supernova_tpu_torch.pipeline.run import Pipeline
+
+    asm = f"{outdir}/asm"
+    het_pairs = []
+
+    def align_spy(pairs, device, **kw):
+        het_pairs.extend(pairs)
+        return align_pairs(pairs, device, **kw)
+
+    align_pairs = ahet.align_pairs
+    ahet.align_pairs = align_spy
+    kernels.reset_launch_counts()
+    pl = Pipeline(asm, device=dev, resume=True)
+    t0 = time.perf_counter()
+    try:
+        D, lines, scaffolds, phasings, outs = pl.run_full(rs)
+    finally:
+        ahet.align_pairs = align_pairs
+    wall = time.perf_counter() - t0
+    recs = pl.stage_records
+    for name, rec in recs.items():
+        print(f"[scaffold] stage {name}: wall {rec['wall_s']:.3f} s, peak device memory "
+              f"{gib(rec['peak_gb'])} GiB, launches {rec['launches']}")
+    check("paths" not in recs, "scaffold: run_full ran the paths stage on a patched outdir")
+    for name in ("count", "graph", "patch", "supergraph", "scaffold"):
+        check(sum(recs[name]["launches"].values()) == 0,
+              f"scaffold: the {name} stage launched {recs[name]['launches']}")
+    rec = recs["scaffold"]
+    st = pl.stats.get
+    phase_s = rec.get("phase_s", {})
+    print("[scaffold] phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in phase_s.items()))
+    print(f"[scaffold] stage_scaffold_phase: wall {rec['wall_s']:.3f} s, peak device memory "
+          f"{gib(rec['peak_gb'])} GiB; scaffold_mode {st('scaffold_mode')}, n_scaffolds "
+          f"{st('n_scaffolds')} ({len(scaffolds)}), n_line_lines {st('n_line_lines')}, "
+          f"line_line_N50 {st('line_line_N50')}, star_gap_joins {st('star_gap_joins')}, "
+          f"barcode_joins {st('barcode_joins')}, gaps_filled_post {st('gaps_filled_post')}, "
+          f"{len(phasings)} lines phased; D {D.n_edges} edges, {lines.n_lines} lines")
+    # the star-gap mode runs all the phases; with no star join the stage
+    # leaves them after starstar for the legacy scaffolder
+    phases = Pipeline.SUP_PHASES
+    if st("scaffold_mode") != "star-gap":
+        phases = phases[: phases.index("starstar") + 1]
+    check(list(phase_s) == list(phases), f"scaffold: ran the phases {list(phase_s)}")
+    for name in phases:
+        path = Path(asm, name, "a.sup.npz")
+        check(path.exists() and path.stat().st_mtime >= time.time() - wall - 1,
+              f"scaffold: phase snapshot {name}/a.sup.npz not written by this run")
+    print(f"[scaffold] {len(phases)} phase snapshots written")
+    for name in RUN_FULL_FILES:
+        check(Path(asm, name).exists(), f"scaffold: {name} not written")
+    for name in FLAVOR_FILES:
+        nrec, nbases, n50 = check_fasta(Path(asm, name), f"scaffold {name}", "ACGTN")
+        print(f"[scaffold] {name}: {nrec} records, {nbases} bases, N50 {n50}")
+    hd = st("hetdist_aligned")
+    check(hd is not None, "scaffold: hetdist_aligned was not logged")
+    check(len(het_pairs) == rec["het_pairs"], "scaffold: the het DP's pairs were not recorded")
+    t0 = time.perf_counter()
+    on_cpu = al.align_pairs(het_pairs, "cpu")
+    cpu_s = time.perf_counter() - t0
+    check(np.array_equal(al.align_pairs(het_pairs, dev), on_cpu),
+          "scaffold: the het DP on the card differs from the same DP on CPU tensors")
+    print(f"[scaffold] het DP: {rec['het_pairs']} bubble pairs, LA x LB {rec['het_shape']}, "
+          f"{rec['het_dp_s']:.3f} s on the card (host clock, result on the host), {cpu_s:.3f} s "
+          f"on CPU tensors: equal; hetdist_aligned {hd:.1f}")
+    g, hb = datasets.simulate_haplotypes(datasets.GENOME, datasets.GENOME_SEED)
+    strands = [dna.codes_to_seq(x) for x in (g, dna.revcomp(g), hb, dna.revcomp(hb))]
+    n_ctg, n_hit = haplotype_share(outs["pseudohap"], strands)
+    print(f"[scaffold] pseudohap contigs (split at N) > 400 bp: {n_hit} of {n_ctg} "
+          f"({100 * n_hit / max(n_ctg, 1):.2f}%) are exact substrings of a haplotype strand")
+    print(f"[scaffold] run_full {wall:.3f} s (resumed up to the scaffold stage)")
+
+
+def phase_small_run_full(torch):
+    """run_full on CUDA and on the CPU for the e2e genome and the star-gap
+    fixture (pipeline/datasets.py SMALL_RUNS): the four FASTA files and
+    summary.json apart from the timing keys identical, every kernel
+    launched by each CUDA run.  Then the star-gap fixture's CUDA outdir
+    resumed with the early phases poisoned: it re-enters after the last
+    phase (fase), runs no phase, launches nothing and writes the same FASTA
+    bytes."""
+    import json
+
+    import numpy as np
+    from supernova_tpu_torch.ingest.ingest import ingest_sim
+    from supernova_tpu_torch.ops import kernels
+    from supernova_tpu_torch.pipeline import datasets
+    from supernova_tpu_torch.pipeline.run import Pipeline
+
+    timing = ("etime_", "mem_")
+    for name, (recipe, opts) in datasets.SMALL_RUNS.items():
+        rs = ingest_sim(*recipe(np.random.default_rng(0)))
+        got = {}
+        with tempfile.TemporaryDirectory() as d:
+            for device in ("cuda", "cpu"):
+                kernels.reset_launch_counts()
+                pl = Pipeline(f"{d}/{device}", device=device, **opts)
+                t0 = time.perf_counter()
+                pl.run_full(rs)
+                wall = time.perf_counter() - t0
+                launches = kernels.launch_counts()
+                summary = json.loads(Path(d, device, "summary.json").read_text())
+                got[device] = ({f: fasta_bytes(Path(d, device, f)) for f in FLAVOR_FILES},
+                               {k: v for k, v in summary.items() if not k.startswith(timing)})
+                print(f"[small run_full] {name} on {device}: {rs.n_reads} reads, {wall:.3f} s, "
+                      f"scaffold_mode {pl.stats.get('scaffold_mode')}, n_scaffolds "
+                      f"{pl.stats.get('n_scaffolds')}, launches {launches}")
+                if device == "cuda":
+                    for k, c in launches.items():
+                        check(c > 0, f"small run_full {name}: kernel {k} was not launched")
+            check(got["cuda"] == got["cpu"],
+                  f"small run_full {name}: the FASTA files or summary.json differ on CUDA and CPU")
+            print(f"[small run_full] {name}: the four FASTA files and summary.json identical on "
+                  "CUDA and the CPU")
+            if pl.stats.get("scaffold_mode") != "star-gap":
+                continue
+            kernels.reset_launch_counts()
+            pl = Pipeline(f"{d}/cuda", device="cuda", resume=True, **opts)
+            pl._star_multipass = pl._barcode_join_passes = pl._fix_misassemblies = None
+            t0 = time.perf_counter()
+            pl.run_full(rs)
+            wall = time.perf_counter() - t0
+            ran = list(pl.stage_records["scaffold"].get("phase_s", {}))
+            check(ran == [], f"small run_full {name}: resumed after fase, it ran {ran}")
+            check(sum(kernels.launch_counts().values()) == 0,
+                  f"small run_full {name}: the resumed run launched {kernels.launch_counts()}")
+            check({f: fasta_bytes(Path(d, "cuda", f)) for f in FLAVOR_FILES} == got["cuda"][0],
+                  f"small run_full {name}: the resumed run's FASTA files differ")
+            print(f"[small run_full] {name} resumed on cuda with the early phases poisoned: "
+                  f"{wall:.3f} s, re-entered after fase, no phase run, no launch, the same four "
+                  "FASTA files")
 
 
 def phase_kernels_patch(torch, dev, bg, outdir, res, save_s):
@@ -1231,10 +1480,10 @@ def phase_block_prep(torch, rs, dev):
           f"{walls['packed'][1]:.3f} s, {peaks['packed']:.3f} GiB; raw tables identical")
 
 
-# the share of the mixed genome's reads its phases run on: three count
+# the share of the mixed genome's reads its phases run on: two count
 # blocks (the whole mixed genome is five), to keep the script inside its
 # time limit on a slow host
-MIXED_FRACTION = 0.65
+MIXED_FRACTION = 0.45
 
 
 def first_barcodes(rs, fraction):
@@ -1576,7 +1825,20 @@ def main() -> int:
     print(f"[card] {smi}")
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    genome_dir = tempfile.mkdtemp()
+    writer = start_fastq_writer(genome_dir)
+    try:
+        return run_phases(torch, smi, t_start, genome_dir, writer)
+    finally:
+        if writer.is_alive():
+            writer.terminate()
+        writer.join()
+        shutil.rmtree(genome_dir, ignore_errors=True)
 
+
+def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
+    """Every phase after the card check; the genome's FASTQs come from
+    `writer` into genome_dir."""
     from supernova_tpu_torch.ops.kernels import _lib
 
     t0 = time.perf_counter()
@@ -1606,22 +1868,29 @@ def main() -> int:
     timed("small", phase_small_slice, torch, rs_small)
     timed("small mixed", phase_small_slice, torch, datasets.r1_trimmed(rs_small), "small mixed",
           block_positions=300_000)
+    timed("small run_full", phase_small_run_full, torch)
     del rs_small
     with tempfile.TemporaryDirectory() as d:
         timed("full", phase_slice, torch, rs_full, "full", d)
     del rs_full
     torch.cuda.empty_cache()
+    # needs no genome: runs while the writer simulates it
+    timed("scale", phase_scale_merge, torch, dev, **SCALE)
+    torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory() as d:
-        launches, crec, table, bg, rs_genome, patch_rec, sg = timed(
-            "fastq run", phase_fastq_run, torch, dev, d)
-        torch.cuda.empty_cache()
-        timed("supergraph glue", phase_glue, torch, dev, sg, rs_genome, f"{d}/asm", kres)
-        torch.cuda.empty_cache()
-        timed("resume", phase_resume, torch, rs_genome, d, sg)
-        torch.cuda.empty_cache()
-        timed("patch kernels", phase_kernels_patch, torch, dev, bg, d, kres,
-              patch_rec.get("save_s", 0.0))
+    d = genome_dir
+    launches, crec, table, bg, rs_genome, patch_rec, sg = timed(
+        "fastq run", phase_fastq_run, torch, dev, d, writer)
+    torch.cuda.empty_cache()
+    timed("supergraph glue", phase_glue, torch, dev, sg, rs_genome, f"{d}/asm", kres)
+    torch.cuda.empty_cache()
+    timed("resume", phase_resume, torch, rs_genome, d, sg)
+    torch.cuda.empty_cache()
+    timed("scaffold", phase_scaffold, torch, dev, rs_genome, d)
+    torch.cuda.empty_cache()
+    timed("patch kernels", phase_kernels_patch, torch, dev, bg, d, kres,
+          patch_rec.get("save_s", 0.0))
+    shutil.rmtree(f"{d}/asm")
     sg_launches = sg["launches"]
     del sg
     torch.cuda.empty_cache()
@@ -1646,7 +1915,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("graph chunks", phase_graph_chunks, torch, table, dev)
     torch.cuda.empty_cache()
-    timed("scale", phase_scale_merge, torch, dev, **SCALE)
     timed("merge", phase_merge, torch, crec["raw_rows"])
     torch.cuda.empty_cache()
     timed("graph sort", phase_graph_sort, torch, table.n_valid)

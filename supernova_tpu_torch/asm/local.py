@@ -2,9 +2,8 @@
 
 The port's own copy of supernova_tpu/asm/local.py, kept equal to it by
 tests/test_torch_hostcopies.py: the port imports nothing of the JAX package.
-The supergraph stage calls only compute_mult; unvoid and unvoid_voids
-import asm/stackaroo.py, asm/fillcheck.py and asm/star.py, which come
-with the scaffold stage.
+The supergraph stage calls compute_mult; the scaffold stage calls unvoid
+and unvoid_voids.
 
 Analogue of 10X/BuildLocal.{h,cc} (GetBarcodes / BuildLocal1/2 / Unvoid,
 called from CP's gap-capture and patch stages, CP.cc:790,1017-1023).  The

@@ -8,7 +8,11 @@ position of the line at every junction, and break_lines groups the
 positions by line once instead of once a line.  Both were quadratic in a
 line's length, which made the break take most of the supergraph stage on a
 10 Mb genome; tests/test_torch_supergraph.py holds them to the reference's
-junctions.  The port imports nothing of the JAX package.
+junctions.  kill_misassembled_cells likewise reads each cell's two windows
+off the line's sorted positions by binary search instead of masking every
+position of the line at every cell (171 s of the scaffold stage on a 10 Mb
+genome); tests/test_torch_scaffold_star.py holds it to the reference's
+deletions.  The port imports nothing of the JAX package.
 
 Analogue of KillMisassembledCells (10X/Super.h:25-31, CP.cc:942-1106):
 a true join is supported by molecules spanning it, so the number of
@@ -173,9 +177,11 @@ def kill_misassembled_cells(
         lp = line_positions.get(li)
         if not lp or llens[li] < 2 * bc_require:
             continue
-        pairs = sorted((int(p), int(b)) for b, ps in lp.items() for p in ps)
-        starts = np.array([p for p, _ in pairs], np.int64)
-        bcs = np.array([b for _, b in pairs], np.int64)
+        starts = np.concatenate([np.asarray(ps, np.int64) for ps in lp.values()])
+        bcs = np.repeat(np.fromiter(lp.keys(), np.int64, len(lp)),
+                        [len(ps) for ps in lp.values()])
+        order = np.lexsort((bcs, starts))
+        starts, bcs = starts[order], bcs[order]
         offs = element_offsets(D, ln)
         for j, cell in enumerate(ln.elements):
             is_bubble = len(cell.paths) > 1
@@ -191,10 +197,13 @@ def kill_misassembled_cells(
             mid = int(offs[j]) + ncell // 2
             if mid < bc_require or llens[li] - mid < bc_require:
                 continue
-            lmask = (starts >= mid - bc_flank) & (starts <= mid - bc_ignore)
-            rmask = (starts >= mid + bc_ignore) & (starts <= mid + bc_flank)
-            n = min(int(lmask.sum()), int(rmask.sum()))
-            bridge = len(np.intersect1d(bcs[lmask], bcs[rmask]))
+            # the windows [mid-flank, mid-ignore] and [mid+ignore, mid+flank]
+            a = int(np.searchsorted(starts, mid - bc_flank, "left"))
+            b = max(int(np.searchsorted(starts, mid - bc_ignore, "right")), a)
+            c = int(np.searchsorted(starts, mid + bc_ignore, "left"))
+            d = max(int(np.searchsorted(starts, mid + bc_flank, "right")), c)
+            n = min(b - a, d - c)
+            bridge = len(np.intersect1d(bcs[a:b], bcs[c:d]))
             expect = min(1.0, n / winpos) * BC_MIN
             if bridge < expect:
                 dels.extend(int(e) for e in cell.edge_ids())

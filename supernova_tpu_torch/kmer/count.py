@@ -385,6 +385,32 @@ def estimate_coverage(table: KmerTable, read_len: float = 150.0):
     return read_cov, int(counts.sum() / kmer_cov)
 
 
+# ------------------------------------------- host canonicalization (numpy)
+# Copies of the reference's numpy twins (supernova_tpu/kmer/count.py:336-355)
+# on uint32 columns; asm/fillcheck.py canonicalizes its fill kmers with them.
+
+def _rev16_np(w):
+    w = ((w & np.uint32(0x33333333)) << np.uint32(2)) | (
+        (w >> np.uint32(2)) & np.uint32(0x33333333)
+    )
+    w = ((w & np.uint32(0x0F0F0F0F)) << np.uint32(4)) | (
+        (w >> np.uint32(4)) & np.uint32(0x0F0F0F0F)
+    )
+    w = ((w & np.uint32(0x00FF00FF)) << np.uint32(8)) | (
+        (w >> np.uint32(8)) & np.uint32(0x00FF00FF)
+    )
+    return (w << np.uint32(16)) | (w >> np.uint32(16))
+
+
+def _canon_np(a, b, c):
+    """Numpy twin of kc.canonicalize on (a, b, c) uint32 columns."""
+    ra, rb, rcw = _rev16_np(~c), _rev16_np(~b), _rev16_np(~a)
+    flip = (ra < a) | ((ra == a) & ((rb < b) | ((rb == b) & (rcw < c))))
+    return (
+        np.where(flip, ra, a), np.where(flip, rb, b), np.where(flip, rcw, c)
+    )
+
+
 # ------------------------------------------------------- blocked counting
 
 class RawBlockTable(NamedTuple):

@@ -15,6 +15,14 @@ A real 10x readset has R1 shorter than R2: R1 starts with the 16-base
 barcode and 7 trimmed bases, which ingest drops.  `r1_trimmed` cuts any of
 these readsets that way (R1 127 bases, R2 150): GENOME so cut has 3,000,000
 reads and 415,500,000 bases, five count blocks of mixed-length reads.
+
+Two small readsets take run_full's two scaffold routes, as the repo's
+end-to-end tests make them: `e2e_reads` (a 5 kb diploid genome, 40
+barcodes; tests/test_pipeline_e2e.py's raw-assembly test) and
+`star_gap_reads` (a 30 kb haploid genome of 8 kb molecules with a
+sequencing void that only barcodes bridge; tests/test_star_gap_pipeline.py),
+which takes the star-gap phases.  SMALL_RUNS names them with the Pipeline
+options their tests use.
 """
 from __future__ import annotations
 
@@ -58,6 +66,15 @@ def simulate_reads(cfg: dict, seed: int):
     return reads, wl
 
 
+def simulate_haplotypes(cfg: dict, seed: int):
+    """The two haplotypes simulate_reads(cfg, seed) samples -> (g, hb)
+    base codes."""
+    rng = np.random.default_rng(seed)
+    g = sim.random_genome(rng, cfg["genome_len"])
+    _, hb = sim.diploidize(rng, g, cfg["het"])
+    return g, hb
+
+
 def simulate(cfg: dict, seed: int):
     """Linked reads of a random diploid genome shaped by `cfg` -> ReadSet
     (ingested in memory)."""
@@ -77,3 +94,43 @@ def r1_trimmed(rs: ReadSet, skip: int = R1_SKIP) -> ReadSet:
         codes=rs.codes[keep], offsets=np.concatenate([[0], np.cumsum(lens - cut)]),
         quals=rs.quals[keep], bc=rs.bc, bci=rs.bci, barcoded=rs.barcoded,
     )
+
+
+def e2e_reads(rng):
+    """The 5 kb diploid genome of the repo's raw-assembly e2e test, 40
+    barcodes -> (SimReads, whitelist codes)."""
+    g = sim.random_genome(rng, 5000, n_repeat_chunks=1, repeat_len=200)
+    _, hb = sim.diploidize(rng, g, het_rate=0.0005)
+    wl = sim.make_whitelist(rng, 128)
+    return sim.simulate_linked_reads(
+        rng, (g, hb), wl, n_barcodes=40, molecules_per_barcode=3, molecule_len=2500,
+        coverage_per_molecule=2.0, error_rate=0.002, bc_error_rate=0.01,
+    ), wl
+
+
+def mask_window(reads, w0: int, w1: int, insert: int = 360):
+    """The read pairs whose fragment misses [w0, w1): a sequencing void that
+    only barcode evidence can bridge."""
+    keep = [i for i, p in enumerate(reads.truth_pos) if p + insert <= w0 or p >= w1]
+    out = sim.SimReads()
+    for f in ("r1", "q1", "r2", "q2", "barcode", "bc_qual", "truth_pos", "truth_hap"):
+        getattr(out, f).extend(getattr(reads, f)[i] for i in keep)
+    return out
+
+
+def star_gap_reads(rng):
+    """The star-gap fixture: 8 kb molecules on a 30 kb haploid genome, with
+    reads of [14,500, 15,000) dropped -> (SimReads, whitelist codes)."""
+    g = sim.random_genome(rng, 30_000)
+    wl = sim.make_whitelist(rng, 256)
+    reads = sim.simulate_linked_reads(
+        rng, (g, g), wl, n_barcodes=80, molecules_per_barcode=2, molecule_len=8_000,
+        coverage_per_molecule=1.0, error_rate=0.0,
+    )
+    return mask_window(reads, 14_500, 15_000), wl
+
+
+# name -> (recipe, Pipeline options); each recipe is called with
+# np.random.default_rng(0), as the tests' rng fixture
+SMALL_RUNS = {"e2e": (e2e_reads, {}),
+              "star-gap": (star_gap_reads, {"auto_downsample": False})}

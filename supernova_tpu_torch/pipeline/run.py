@@ -1,32 +1,47 @@
-"""The port's Pipeline: supernova_tpu's Pipeline.run on one device, and
-its patch and supergraph stages.
+"""The port's Pipeline: supernova_tpu's Pipeline.run and Pipeline.run_full
+on one device.
 
     ReadSet -> stage_ingest -> stage_count (under the coverage guard)
             -> stage_graph -> stage_paths -> stage_fasta("raw") -> finalize
             -> (BaseGraph, assembly.raw.fasta.gz)
 
 as supernova_tpu/pipeline/run.py's Pipeline.run runs it, each stage under
-the port's stage timer; stage_patch (dead-end pairs -> closures -> the
-graph rebuilt on the device -> re-path) and stage_supergraph (closures
-glued into the supergraph D on the device -> cleanup -> lines ->
-molecules) are run_full's next stages and are called by the caller after
-run().  Every stage writes the reference's checkpoint (reads.npz,
-kmers.npz, graph.npz, paths.npz, ebcx.npz, closures.npz,
-graph.patched.npz, cpaths.npz, dpaths.npz, supergraph.npz) in its
-format, and with resume=True reloads it instead of recomputing.
-Readsets above one count block take the blocked count and pather; the
-count stage's record then holds its block, row, partition, spill and
-OOM-retry counts, and every stage's record the kernel launches made in
-it.  finalize() writes summary.json,
+the port's stage timer.  run_full runs the reference's whole path:
+
+    ingest -> count -> graph -> paths -> patch (dead-end pairs ->
+    closures -> the graph rebuilt on the device -> re-path) -> supergraph
+    (closures glued into the supergraph D on the device -> cleanup ->
+    lines -> molecules) -> scaffold (the star-gap phases or the legacy
+    scaffolder, lines of lines, Flipper phasing, the het DP on the device)
+    -> FASTA in the raw, megabubbles, pseudohap and pseudohap2 flavors,
+    GFA, assembly_state.pkl, the final/a.sup* files, histograms, the
+    assembly report and the summary files.
+
+Every stage writes the reference's checkpoint (reads.npz, kmers.npz,
+graph.npz, paths.npz, ebcx.npz, closures.npz, graph.patched.npz,
+cpaths.npz, dpaths.npz, supergraph.npz, <phase>/a.sup.npz) in its format,
+and with resume=True reloads it instead of recomputing (the reference's
+outdirs too).  Readsets above one count block take the blocked count and
+pather; the count stage's record then holds its block, row, partition,
+spill and OOM-retry counts, and every stage's record the kernel launches
+made in it; the scaffold stage's record holds each phase's wall and the
+het DP's pairs, shape and seconds.  finalize() writes summary.json,
 summary_cs.csv, stats/summary.txt and alerts.json; all_stats.json is
-rewritten after every stage.
+rewritten after every timed stage.
+
+The reference wraps each of run_full's stages in its orchestrator
+(pipestance.json, one retry of a stage that raises); the port runs each
+stage once.
 """
 from __future__ import annotations
 
 import gc
 import logging
+import os
+import pickle
 import shutil
 import time
+from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -37,18 +52,29 @@ from ..align import index as pindex
 from ..align import pather, pathzip
 from ..align import rescue as arescue
 from ..asm import bads as abads
+from ..asm import barcode_join as abj
 from ..asm import bubbles as abub
 from ..asm import capture as acap
 from ..asm import clean as aclean
 from ..asm import closures as aclos
 from ..asm import dups as adups
+from ..asm import fixint as afix
+from ..asm import gaprika as agk
+from ..asm import het as ahet
 from ..asm import inversion as ainv
 from ..asm import lines as alines
+from ..asm import local as alocal
 from ..asm import misassembly as amis
 from ..asm import molecules as amol
 from ..asm import patch as apatch
+from ..asm import phasing as aph
 from ..asm import place as aplace
 from ..asm import pullapart as apull
+from ..asm import report as areport
+from ..asm import scaffold as asc
+from ..asm import splat as aspl
+from ..asm import stackaroo as astk
+from ..asm import star as astar
 from ..asm import supergraph as asg
 from ..core.device import resolve_device
 from ..core.kmer_codec import W3
@@ -59,7 +85,11 @@ from ..ingest.ingest import subsample_pairs, valid_barcode_fraction
 from ..ingest.reads import ReadSet
 from ..kmer import count as kcount
 from ..ops import kernels
+from ..out import efasta as oef
 from ..out import fasta as fout
+from ..out import gfa as ogfa
+from ..out import pseudohap as oph
+from ..out import superfiles as osf
 from ..stats import gems as sgems
 from ..stats import histograms as hist
 from ..stats.logger import StatLogger, n50
@@ -70,9 +100,11 @@ log = logging.getLogger("supernova_tpu_torch")
 # Flat base count above which the ReadSet re-homes onto disk memmaps
 # (reads.lazy/), as the reference's (supernova_tpu/pipeline/run.py:40-43).
 LAZY_READS_MIN_BASES = 2_000_000_000
-# the reference's other FASTA flavors, which need the scaffold and phase
-# stages
-LATER_FLAVORS = ("megabubbles", "pseudohap", "pseudohap2", "efasta")
+# FASTA flavors -> file name; all but raw need run_full's scaffold and
+# phase stages (the reference's stage_fasta, run.py:1731-1752)
+FASTA_FILES = {"raw": "assembly.raw.fasta.gz", "megabubbles": "assembly.megabubbles.fasta.gz",
+               "pseudohap": "assembly.pseudohap.fasta.gz",
+               "pseudohap2": "assembly.pseudohap2.fasta.gz", "efasta": "assembly.efasta.gz"}
 
 
 class Pipeline:
@@ -109,7 +141,10 @@ class Pipeline:
     def run(self, rs: ReadSet, flavor: str = "raw"):
         """The reference's Pipeline.run, each stage timed -> (BaseGraph,
         path of the FASTA).  Raises RuntimeError on preflight exit alerts."""
-        self._fasta_path(flavor)  # refuse another flavor before any work
+        if flavor != "raw":  # refuse before any work
+            self._fasta_path(flavor)
+            raise ValueError(f"run() writes the raw flavor; {flavor!r} needs the scaffold "
+                             "and phase stages: call run_full")
         _, bg, _ = self.run_slice(rs)
         path = self._timed("fasta", self.stage_fasta, bg, flavor)
         self.finalize()
@@ -127,6 +162,77 @@ class Pipeline:
         table, rs = self._timed("count", self._count_with_cov_guard, rs)
         bg = self._timed("graph", self.stage_graph, table)
         return table, bg, self._timed("paths", self.stage_paths, bg, rs)
+
+    def run_full(self, rs: ReadSet, flavors=("raw", "megabubbles", "pseudohap", "pseudohap2")):
+        """The reference's run_full (run.py:1769-1893), step for step: ingest,
+        then count, graph, paths, patch, supergraph and scaffold, each timed
+        under its name; the FASTA flavors; graph.gfa.gz and
+        supergraph.gfa.gz; assembly_state.pkl; the final/a.sup* files; the
+        contig, scaffold, edge, phase block and reads-per-barcode
+        histograms; the assembly report; the summary files.  With
+        resume=True and graph.patched.npz present it skips the paths stage,
+        as the reference does (the patch stage reloads the patched graph and
+        its paths).  -> (D, lines, scaffolds, phasings, {flavor: path})."""
+        for flavor in flavors:
+            self._fasta_path(flavor)  # refuse an unknown flavor before any work
+        rs = self.stage_ingest(rs)
+        exits = self.stats.exit_alerts()
+        if exits:
+            self.finalize()
+            raise RuntimeError(f"preflight exit alerts: {exits}")
+        table, rs = self._timed("count", self._count_with_cov_guard, rs)
+        bg = self._timed("graph", self.stage_graph, table)
+        del table
+        if self.resume and (self.outdir / "graph.patched.npz").exists():
+            rp = None  # the patch stage reloads the patched graph and its paths
+        else:
+            rp = self._timed("paths", self.stage_paths, bg, rs)
+        bg, rp = self._timed("patch", self.stage_patch, bg, rp, rs)
+        D, lines, dup = self._timed("supergraph", self.stage_supergraph, bg, rp, rs)
+        D, lines, scaffolds, phasings = self._timed(
+            "scaffold", self.stage_scaffold_phase, D, lines, rp, rs)
+
+        ctx = (D, lines, scaffolds, phasings)
+        outputs = {flavor: self.stage_fasta(bg, flavor, ctx=ctx) for flavor in flavors}
+        ogfa.write_gfa(bg, self.outdir / "graph.gfa.gz")
+        ogfa.write_gfa_super(D, self.outdir / "supergraph.gfa.gz")
+        # the final assembly state, enough to write any flavor again
+        with open(self.outdir / "assembly_state.pkl", "wb") as f:
+            pickle.dump({"D": D, "lines": lines, "scaffolds": scaffolds,
+                         "phasings": phasings}, f)
+        lbpx = None
+        lp = getattr(self, "_line_positions", None)
+        if lp:
+            lbpx = [(li, bc, p) for li, bcs in lp.items() for bc, ps in bcs.items() for p in ps]
+        osf.write_super_files(self.outdir, D, lines, phasings=phasings,
+                              dpaths=getattr(self, "_dpaths", None),
+                              dlen=getattr(self, "_dlen", None), lbpx=lbpx)
+        scaffold_seqs = []
+        for sc in scaffolds:
+            parts = [oph.line_sequence(D, lines.lines[li], {}) for li in sc.line_ids]
+            scaffold_seqs.append(oph.join_parts(parts, sc))
+
+        statsdir = self.outdir / "stats"
+        statsdir.mkdir(exist_ok=True)
+        contigs = [n for s in scaffold_seqs for n in areport.contig_lengths_from_seq(s)]
+        for name, lens in (("contig", contigs), ("scaffold", [len(s) for s in scaffold_seqs]),
+                           ("edge", [D.edge_len(d) for d in range(D.n_edges)])):
+            h = hist.length_histogram(lens)
+            hist.write_hist_json(statsdir / f"histogram_{name}.json",
+                                 f"{name} length histogram", h["bins"], h["counts"])
+        pb_lens = []
+        for li, ph2 in phasings.items():
+            pb_lens.extend(aph.phase_block_lengths(D, lines.lines[li], ph2))
+        h = hist.length_histogram(np.array(pb_lens or [0]))
+        hist.write_hist_json(statsdir / "histogram_phase_block.json", "phase block lengths",
+                             h["bins"], h["counts"])
+        rb = hist.reads_per_barcode_histogram(rs)
+        hist.write_hist_json(statsdir / "histogram_reads_per_barcode.json",
+                             "reads per barcode", rb["bins"], rb["counts"])
+        areport.report_assembly_stats(self.stats, D, lines, scaffolds, phasings, scaffold_seqs,
+                                      adups.dup_fraction(dup), bg.checksum())
+        self.finalize()
+        return D, lines, scaffolds, phasings, outputs
 
     def finalize(self):
         self.stats.log(
@@ -346,13 +452,9 @@ class Pipeline:
                             counts=pindex.edge_read_counts(edges, plen, bg.n_edges))
 
     def _fasta_path(self, flavor: str) -> Path:
-        if flavor in LATER_FLAVORS:
-            raise NotImplementedError(
-                f"FASTA flavor {flavor!r} needs the scaffold and phase stages, not yet "
-                "ported (ROADMAP A8); this port writes the raw flavor")
-        if flavor != "raw":
+        if flavor not in FASTA_FILES:
             raise ValueError(f"unknown flavor {flavor}")
-        return self.outdir / f"assembly.{flavor}.fasta.gz"
+        return self.outdir / FASTA_FILES[flavor]
 
     def _resume_supergraph(self, bg, rs, ck, dck):
         """START=supergraph re-entry (the reference's run.py:679-746): D and
@@ -569,11 +671,558 @@ class Pipeline:
                             dinv=D.dinv, from_v=D.from_v, to_v=D.to_v, keep=keep, dup=dup)
         return D, lines, dup
 
-    def stage_fasta(self, bg: dgraph.BaseGraph, flavor: str = "raw") -> Path:
-        """assembly.raw.fasta.gz: one record per rc pair of edges (reference
-        run.py:1731-1754, its raw flavor)."""
+    # lines at or above this are placed scaffolding citizens: fill content
+    # owned by one of them duplicates sequence living elsewhere
+    FILL_OWNER_LONG_LINE = 20_000
+
+    def _fill_ownership(self, D, lines):
+        """The fill gate's ownership context (asm/fillcheck
+        fill_owned_frac; the reference's run.py:289-331): the graph's kmer
+        dictionary as sorted uint32 word columns, a flag for each row whose
+        owning base edge lies in a line of >= FILL_OWNER_LONG_LINE bases,
+        each row's edge and position, and the edges' sequences.  None when
+        the graph has no dictionary."""
+        bg = D.bg
+        kw = getattr(bg, "kmer_words", None)
+        ne = getattr(bg, "node_edge", None)
+        nk = int(getattr(bg, "n_kmers", 0) or 0)
+        if kw is None or ne is None or nk == 0:
+            return None
+        kw = np.asarray(kw)[:nk]
+        llens = lines.lengths(D)
+        long_base = np.zeros(bg.n_edges, bool)
+        for li, ln in enumerate(lines.lines):
+            if llens[li] < self.FILL_OWNER_LONG_LINE:
+                continue
+            for d in ln.edges():
+                row = np.asarray(D.epaths.row(int(d)), np.int64)
+                if len(row) and row[0] >= 0:
+                    long_base[row] = True
+        long_base = long_base | long_base[np.asarray(bg.inv)]
+        e_of_row = np.asarray(ne)[0::2][:nk]
+        row_long = long_base[np.clip(e_of_row, 0, bg.n_edges - 1)]
+        np_rows = np.asarray(bg.node_pos)[0::2][:nk]
+        return {
+            "words": (
+                np.ascontiguousarray(kw[:, 0]),
+                np.ascontiguousarray(kw[:, 1]),
+                np.ascontiguousarray(kw[:, 2]),
+            ),
+            "row_long": row_long,
+            "row_edge": e_of_row.astype(np.int64),
+            "row_pos": np_rows.astype(np.int64),
+            "edge_seq": lambda e: bg.edges.row(int(e)),
+        }
+
+    def _star_multipass(self, D, lines, rs, ebcx, max_passes: int = 3):
+        """Star's passes over the gap-joined D (the reference's
+        run.py:982-1039): each pass scores joins against the calibrated
+        Jaccard floor, inserts {-2, size} gap edges sized from the barcode
+        molecules and re-finds the lines -> (D, lines, joins)."""
+        good = asc.good_barcodes(rs.bc)
+        total = 0
+        for _ in range(max_passes):
+            llens, lbp, line_bcs, positions = self._line_evidence(D, lines, rs, ebcx, good)
+            canon = list(range(lines.n_lines))
+            lhood = astar.line_prox(line_bcs, canon)
+            rdead = astar.right_dead_ends(lines, D)
+            lp_cal: dict = {}
+            for (b, li), ps in positions.items():
+                lp_cal.setdefault(li, {})[b] = ps
+            # one window for the floor's calibration and the veto's measure
+            jwin = min(agk.WINDOW, astar.BRIDGE_VIEW)
+            floor = agk.join_jaccard_floor(lp_cal, llens, D, lines, window=jwin)
+            joins = astar.star_joins(canon, llens, lines.linv, lbp, lhood, rdead,
+                                     jaccard_floor=floor, jaccard_view=jwin)
+            joins = astar.filter_joins(joins, lines.linv)
+            if not joins:
+                break
+            by_bl = defaultdict(list)
+            for m in amol.infer_molecules(positions):
+                by_bl[(m.bc, m.line)].append(m)
+            gap_sizes = {(L1, R): amol.estimate_gap(by_bl, L1, int(llens[L1]), R)
+                         for L1, R, _ in joins}
+            D = astar.insert_star_gaps(D, lines, joins, gap_sizes)
+            D.validate()
+            lines = alines.find_lines(D)
+            total += len(joins)
+        return D, lines, total
+
+    def _line_evidence(self, D, lines, rs, ebcx, good):
+        """Each line's scaffolding evidence: lengths, end-restricted barcode
+        positions (lbp), good-barcode sets and raw positions."""
+        llens = lines.lengths(D)
+        sup_bcs = asg.super_edge_barcodes(D, ebcx)
+        line_bc_edges = []
+        for ln in lines.lines:
+            bcs = [sup_bcs[int(dd)] for dd in ln.edges()]
+            line_bc_edges.append(np.unique(np.concatenate(bcs)) if bcs else np.zeros(0, np.int64))
+        line_bcs = asc.line_barcode_sets(lines, line_bc_edges, good)
+        positions = amol.read_line_positions(D, lines, self._dpaths, self._dlen, rs.bc,
+                                             base_paths=self._base_paths)
+        lbp_all = {li: [] for li in range(lines.n_lines)}
+        for (bc, li), ps in positions.items():
+            lbp_all[li].extend((bc, p) for p in ps)
+        lbp = astar.restrict_positions(lbp_all, llens)
+        return llens, lbp, line_bcs, positions
+
+    def _barcode_join_passes(self, D, lines, rs, ebcx, max_passes: int = 3):
+        """BarcodeJoin passes over D (the reference's run.py:1068-1094):
+        splice symmetric barcode-order links between long lines, re-find
+        the lines, iterate -> (D, lines, joins)."""
+        good = asc.good_barcodes(rs.bc)
+        total = 0
+        for _ in range(max_passes):
+            llens, lbp, line_bcs, _pos = self._line_evidence(D, lines, rs, ebcx, good)
+            canon = list(range(lines.n_lines))
+            lhood = astar.line_prox(line_bcs, canon)
+            cov = astar.line_coverage(llens, lbp)
+            D2, n = abj.barcode_join(D, lines, llens, lbp, lhood, cov)
+            if not n:
+                break
+            D = D2
+            D.validate()
+            lines = alines.find_lines(D)
+            total += n
+        return D, lines, total
+
+    def _fix_misassemblies(self, D, lines, rs, edges, plen):
+        """FixMisassemblies between star and starstar (the reference's
+        run.py:1096-1152, without its resplay): low-unique junk, inversion
+        bubbles, then the misassembled cells at the base window tier ->
+        (D, lines)."""
+        n_sp = 0
+        n_kill = 0
+        dels = aclean.kill_low_unique(D)
+        if dels:
+            D = ainv.delete_edges(D, dels)
+            D.validate()
+            lines = self._refresh_line_state(D, rs, edges, plen)
+            n_kill += len(dels)
+        zaps = ainv.zap_inversion_bubbles(D, lines)
+        if zaps:
+            D = ainv.delete_edges(D, zaps)
+            D.validate()
+            lines = self._refresh_line_state(D, rs, edges, plen)
+            n_kill += len(zaps)
+        if getattr(self, "_line_positions", None) is None or n_kill or n_sp:
+            self._refresh_positions(D, lines, rs)
+        lwml = amol.lw_mean_length(self._molecules) if self._molecules else None
+        dels2 = amis.kill_misassembled_cells(D, lines, self._line_positions, lw_mol_len=lwml)
+        if dels2:
+            D = ainv.delete_edges(D, dels2)
+            D.validate()
+            lines = self._refresh_line_state(D, rs, edges, plen)
+            n_kill += len(dels2)
+        if n_sp or n_kill:
+            self.stats.log("fix_misassemblies_edits", n_sp + n_kill,
+                           "resplays + edges deleted by FixMisassemblies", stage="scaffold")
+        return D, lines
+
+    def _refresh_line_state(self, D, rs, edges, plen):
+        """Lines, placements, molecules and line positions after a D edit."""
+        lines = alines.find_lines(D)
+        self._dpaths, self._dlen = aplace.place_reads(
+            D, edges, plen, read_bc=rs.bc if rs.barcoded else None, lines=lines)
+        if rs.barcoded:
+            self._refresh_positions(D, lines, rs)
+        return lines
+
+    def _refresh_positions(self, D, lines, rs):
+        self._set_molecules(D, lines, self._dpaths, self._dlen, rs)
+
+    def _save_sup_snapshot(self, name: str, D, extra: dict | None = None) -> None:
+        """One scaffold phase's snapshot, <name>/a.sup.npz."""
+        d = self.outdir / name
+        d.mkdir(exist_ok=True)
+        np.savez_compressed(d / "a.sup.npz", epaths_values=D.epaths.values,
+                            epaths_offsets=D.epaths.offsets, dinv=D.dinv, from_v=D.from_v,
+                            to_v=D.to_v, **(extra or {}))
+
+    def _load_sup_snapshot(self, bg, path, want_reads: int | None = None,
+                           want_paths: bool = False):
+        """A phase snapshot when it belongs to this base graph (and, when
+        it records one, this read count) -> D, or (D, dpaths, dlen) with
+        want_paths; else None."""
+        if not path.exists():
+            return None
+        z = np.load(path)
+        ev = z["epaths_values"]
+        eo = z["epaths_offsets"]
+        if ev.size:
+            # base-edge ids in range, on the rows that are not gaps (a gap
+            # row [-2, gap_len, ...] holds lengths)
+            lens = np.diff(eo)
+            first = np.full(len(lens), -1, ev.dtype)
+            ne = lens > 0
+            first[ne] = ev[eo[:-1][ne]]
+            real = np.repeat(first >= 0, lens)
+            if real.any() and int(ev[real].max()) >= bg.n_edges:
+                return None
+        if "n_base_edges" in z and int(z["n_base_edges"]) != bg.n_edges:
+            return None
+        if want_reads is not None and ("n_reads" not in z or int(z["n_reads"]) != want_reads):
+            return None
+        from_v, to_v = z["from_v"], z["to_v"]
+        nv = int(max(from_v.max(), to_v.max())) + 1 if len(from_v) else 0
+        D = asg.SuperGraph(epaths=Ragged(ev, z["epaths_offsets"]), dinv=z["dinv"],
+                           from_v=from_v, to_v=to_v, n_vertices=nv, bg=bg)
+        if want_paths:
+            if "dpaths" not in z:
+                return None
+            return D, z["dpaths"], z["dlen"]
+        return D
+
+    # The re-enterable phases between the supergraph and phasing, each
+    # snapshotted to <phase>/a.sup.npz; resume=True restores the newest
+    # snapshot that matches and runs only the later phases.
+    SUP_PHASES = (
+        "splay", "star", "fix", "starstar", "presize", "stackaroo",
+        "unvoid", "void", "patch", "mis", "invfix", "canon", "gaprika",
+        "audit", "fase",
+    )
+
+    def _scaffold_star_phases(self, D, lines, rs, edges, plen, ebcx):
+        """The star-gap phases (the reference's run.py:1250-1612), each
+        snapshotted, re-entered under resume=True from the newest snapshot
+        that matches; SN_STOP_AFTER_PHASE=<phase> exits after that phase's
+        snapshot.  The stage's record gets each phase's wall (phase_s).
+        -> (D, lines), or None when star and starstar made no join (the
+        caller takes the legacy scaffolder)."""
+        st = {"joins": 0}
+        log_sc = lambda name, value, *a: self.stats.log(name, value, *a, stage="scaffold")
+
+        def _refresh(D):
+            return self._refresh_line_state(D, rs, edges, plen)
+
+        def ph_splay(D, lines):
+            # splay long-line end vertices before the barcode joins
+            n_sp = aclean.splay_line_ends(D, lines, lines.lengths(D))
+            if n_sp:
+                lines = alines.find_lines(D)
+                self._refresh_positions(D, lines, rs)
+                log_sc("splayed_vertices", n_sp, "long-line end vertices splayed")
+            return D, lines
+
+        def ph_star(D, lines):
+            D, lines, n_joins = self._star_multipass(D, lines, rs, ebcx)
+            st["joins"] += n_joins
+            if n_joins:
+                log_sc("star_gap_joins", n_joins, "{-2} gap edges inserted by Star passes")
+            return D, lines
+
+        def ph_fix(D, lines):
+            return self._fix_misassemblies(D, lines, rs, edges, plen)
+
+        def ph_starstar(D, lines):
+            D, lines, n_bj = self._barcode_join_passes(D, lines, rs, ebcx)
+            st["joins"] += n_bj
+            if n_bj:
+                log_sc("barcode_joins", n_bj, "line joins made by BarcodeJoin passes")
+            return D, lines
+
+        def ph_stackaroo(D, lines):
+            # bridgeable {-2} edges upgraded to {-3} sequence
+            D, n_filled = astk.stackaroo_gaps(D, rs, self._dpaths, self._dlen,
+                                              ownership=self._fill_ownership(D, lines))
+            if n_filled:
+                D.validate()
+                log_sc("gaps_filled_post", n_filled,
+                       "gap edges upgraded to sequence by read stacks")
+            return D, lines
+
+        def ph_unvoid(D, lines):
+            # barcode-local assembly over the {-2} gaps stackaroo left open
+            D2u, n_unvoid = alocal.unvoid(D, rs, ebcx, ownership=self._fill_ownership(D, lines))
+            if n_unvoid:
+                D = D2u
+                D.validate()
+                lines = _refresh(D)
+                log_sc("gaps_unvoided", n_unvoid, "gaps closed by barcode-local assembly")
+            return D, lines
+
+        def ph_void(D, lines):
+            # voids at line dead-ends closed toward barcode-neighbour lines
+            llens_u, _lbp_u, line_bcs_u, _pos_u = self._line_evidence(
+                D, lines, rs, ebcx, asc.good_barcodes(rs.bc))
+            D2v, n_voids = alocal.unvoid_voids(D, rs, ebcx, lines, line_bcs_u, llens_u,
+                                               ownership=self._fill_ownership(D, lines))
+            if n_voids:
+                D = D2v
+                D.validate()
+                lines = _refresh(D)
+                log_sc("voids_closed", n_voids, "line dead-ends joined by barcode-local assembly")
+            return D, lines
+
+        def ph_patch(D, lines):
+            # pair-linked {-2} gaps -> {-1}, then the saved closures splatted
+            # across them
+            D2c, n_conv = aspl.convert_bc_gaps(D, self._dpaths, self._dlen)
+            if n_conv:
+                D = D2c
+                D.validate()
+                log_sc("pair_gaps_converted", n_conv, "{-2} gaps with read-pair links -> {-1}")
+            cl2 = getattr(self, "_closures", None)
+            if cl2 and n_conv:
+                D3, n_sp = aspl.splat(D, [np.asarray(c, np.int64) for c in cl2])
+                if n_sp:
+                    D = D3
+                    D.validate()
+                    lines = _refresh(D)
+                    log_sc("gaps_splatted", n_sp, "pair gaps replaced by closure sequence")
+            self._refresh_positions(D, lines, rs)
+            return D, lines
+
+        def ph_mis(D, lines):
+            # the interior discontinuity scan first (while lines are long),
+            # then the misassembled-cell tiers and the position-free variant
+            lpx = self._line_positions or {}
+            if lpx:
+                splits, gap_dels, detaches, finfo = afix.find_interior_breaks(
+                    D, lines, lpx, lines.lengths(D))
+                log.info("fixint: %s", finfo)
+                # splits and detaches keep edge ids; deletions renumber, so
+                # they run last
+                n_broken = 0
+                if splits:
+                    D = afix.split_edges(D, splits)
+                    n_broken += len(splits)
+                if detaches:
+                    D = afix.detach_edges(D, detaches)
+                    n_broken += len(detaches)
+                if gap_dels:
+                    dels_g = sorted({g for d in gap_dels for g in (d, int(D.dinv[d]))})
+                    D = ainv.delete_edges(D, dels_g)
+                    n_broken += len(gap_dels)
+                if n_broken:
+                    D.validate()
+                    lines = _refresh(D)
+                    log_sc("interior_breaks", n_broken,
+                           "breaks at calibrated bridge-fraction dips "
+                           "(gap dels + edge splits + head detaches)")
+            lwml = amol.lw_mean_length(self._molecules) if self._molecules else None
+            n_killed = 0
+            for (req, flk, ign) in amis.ESCALATION_TIERS:
+                dels = amis.kill_misassembled_cells(
+                    D, lines, self._line_positions, bc_require=req, bc_flank=flk,
+                    bc_ignore=ign, lw_mol_len=lwml)
+                if not dels:
+                    continue
+                n_killed += len(dels)
+                D = ainv.delete_edges(D, dels)
+                D.validate()
+                lines = _refresh(D)
+            dels_alt = amis.kill_misassembled_cells_alt(D, lines, ebcx)
+            if dels_alt:
+                n_killed += len(dels_alt)
+                D = ainv.delete_edges(D, dels_alt)
+                D.validate()
+                lines = _refresh(D)
+            if n_killed:
+                log_sc("misassembled_cells_killed", n_killed,
+                       "D-edges deleted at unsupported junctions")
+            return D, lines
+
+        def ph_invfix(D, lines):
+            # interiors between barcode-only gap pairs that the barcode
+            # windows call inverted, flipped
+            n_flips = ainv.inv_fix(D, lines, self._line_positions or {})
+            if n_flips:
+                D.validate()
+                lines = _refresh(D)
+                log_sc("inversions_fixed", n_flips, "line interiors flipped to their rc by InvFix")
+            return D, lines
+
+        def ph_canon(D, lines):
+            # 3-4-path cells flattened into parallel edges
+            D2c2, n_canon = acap.canonicalize_cells(D, lines)
+            if n_canon:
+                D = D2c2
+                D.validate()
+                lines = _refresh(D)
+                log_sc("cells_canonicalized", n_canon)
+            return D, lines
+
+        def ph_gaprika(D, lines):
+            # every {-2} gap re-sized from the assembly's own bridge curve;
+            # joins below half its max-gap value are broken
+            self._refresh_positions(D, lines, rs)
+            for _ in range(2):  # the second pass re-sizes after any breaks
+                lp = self._line_positions or {}
+                if not lp:
+                    break
+                D, n_sized, ginfo = agk.gaprika(D, lines, lp, lines.lengths(D))
+                if n_sized:
+                    D.validate()
+                    log_sc("gaps_sized", n_sized,
+                           "{-2} gaps re-sized by the calibrated bridge curve")
+                log.info("gaprika: %s", {k: v for k, v in ginfo.items() if k != "curve"})
+                weak = ginfo.get("weak_edges") or []
+                if not weak:
+                    break
+                dels = sorted({int(d) for d in weak} | {int(D.dinv[d]) for d in weak})
+                D = ainv.delete_edges(D, dels)
+                D.validate()
+                lines = _refresh(D)
+                log_sc("weak_gap_joins_broken", len(weak),
+                       "{-2} joins deleted for sub-curve barcode linkage")
+            return D, lines
+
+        def ph_audit(D, lines):
+            # every {-3} fill re-verified against the current placements;
+            # failures demoted to calibrated {-2}
+            D2, n_dem = astk.audit_seq_gaps(D, rs, self._dpaths, self._dlen,
+                                            ownership=self._fill_ownership(D, lines))
+            if n_dem:
+                D = D2
+                D.validate()
+                lines = _refresh(D)
+                log_sc("seq_gaps_demoted", n_dem,
+                       "{-3} fills failing the final pair-content audit -> calibrated {-2}")
+            return D, lines
+
+        def ph_fase(D, lines):
+            return D, lines  # terminal marker: snapshot only
+
+        fns = {
+            "splay": ph_splay, "star": ph_star, "fix": ph_fix, "starstar": ph_starstar,
+            "presize": ph_gaprika, "stackaroo": ph_stackaroo, "unvoid": ph_unvoid,
+            "void": ph_void, "patch": ph_patch, "mis": ph_mis, "invfix": ph_invfix,
+            "canon": ph_canon, "gaprika": ph_gaprika, "audit": ph_audit, "fase": ph_fase,
+        }
+
+        start_idx = 0
+        if self.resume:
+            for i in range(len(self.SUP_PHASES) - 1, -1, -1):
+                name = self.SUP_PHASES[i]
+                path = self.outdir / name / "a.sup.npz"
+                got = self._load_sup_snapshot(D.bg, path, want_reads=rs.n_reads,
+                                              want_paths=True)
+                if got is None:
+                    continue
+                D, self._dpaths, self._dlen = got
+                lines = alines.find_lines(D)
+                self._refresh_positions(D, lines, rs)
+                zj = np.load(path)
+                st["joins"] = int(zj["joins"]) if "joins" in zj else 1
+                start_idx = i + 1
+                log.info("scaffold: resumed from the %s snapshot", name)
+                break
+
+        phase_s = self.stage_records.setdefault("scaffold", {}).setdefault("phase_s", {})
+        for name in self.SUP_PHASES[start_idx:]:
+            t0 = time.time()
+            D, lines = fns[name](D, lines)
+            phase_s[name] = time.time() - t0
+            log.info("scaffold phase %s: %.1fs", name, phase_s[name])
+            self._save_sup_snapshot(name, D, extra={
+                "n_reads": np.int64(rs.n_reads), "n_base_edges": np.int64(D.bg.n_edges),
+                "dpaths": self._dpaths, "dlen": self._dlen, "joins": np.int64(st["joins"])})
+            if os.environ.get("SN_STOP_AFTER_PHASE") == name:
+                log.info("scaffold: SN_STOP_AFTER_PHASE=%s hit, exiting", name)
+                raise SystemExit(0)
+            if name == "starstar":
+                if st["joins"] == 0:
+                    return None  # no star evidence: the legacy scaffolder
+                log_sc("scaffold_mode", "star-gap")
+        return D, lines
+
+    def stage_scaffold_phase(self, D, lines, rp: pather.ReadPaths, rs: ReadSet):
+        """The reference's stage_scaffold_phase (run.py:1614-1729), step for
+        step: barcoded reads take the star-gap phases, whose scaffolds are
+        the lines of the gap-joined D; otherwise (or with no star join) the
+        legacy mutual-best scaffolder with Stackaroo over its gaps.  Then
+        lines of lines, Flipper phasing and the het estimate, whose DP runs
+        on the Pipeline's device (the stage's record: het_pairs, het_shape
+        (LA, LB), het_dp_s) -> (D, lines, scaffolds, phasings)."""
+        n = rs.n_reads
+        edges, plen = (x[:n] for x in convert.readpaths_to_numpy(rp)[:2])
+        ebcx = pindex.edge_barcodes(edges, plen, rs.bc, D.bg.n_edges)
+        lp = getattr(self, "_line_positions", None)
+        scaffolds = None
+        if rs.barcoded and lp:
+            got = self._scaffold_star_phases(D, lines, rs, edges, plen, ebcx)
+            if got is not None:
+                D, lines = got
+                scaffolds = [asc.Scaffold([int(li)], []) for li in alines.canonical_lines(lines)]
+        if scaffolds is None:
+            # the legacy path: mutual-best barcode-set scaffolding over
+            # line chains
+            good = asc.good_barcodes(rs.bc)
+            sup_bcs = asg.super_edge_barcodes(D, ebcx)
+            line_bc_edges = []
+            for ln in lines.lines:
+                bcs = [sup_bcs[int(d)] for d in ln.edges()]
+                line_bc_edges.append(np.unique(np.concatenate(bcs)) if bcs
+                                     else np.zeros(0, np.int64))
+            line_bcs = asc.line_barcode_sets(lines, line_bc_edges, good)
+            line_lens = lines.lengths(D)
+            scaffolds = asc.scaffold_lines(lines, line_bcs, line_lens, line_positions=lp)
+            # gap estimates from the barcode molecules
+            mols = getattr(self, "_molecules", None)
+            if mols:
+                by_bl = defaultdict(list)
+                for m in mols:
+                    by_bl[(m.bc, m.line)].append(m)
+                for sc in scaffolds:
+                    for i in range(len(sc.line_ids) - 1):
+                        la, lb = sc.line_ids[i], sc.line_ids[i + 1]
+                        sc.gaps[i] = max(1, amol.estimate_gap(by_bl, la, int(line_lens[la]), lb))
+            line_seqs = {li: oph.line_sequence(D, lines.lines[li], {})
+                         for sc in scaffolds for li in sc.line_ids}
+            n_filled = astk.stackaroo(D, lines, scaffolds, rs, self._dpaths, self._dlen,
+                                      line_seqs, ownership=self._fill_ownership(D, lines))
+            if n_filled:
+                self.stats.log("gaps_filled_post", n_filled,
+                               "scaffold gaps closed by read stacks", stage="scaffold")
+        self.stats.log("n_scaffolds", len(scaffolds), stage="scaffold")
+
+        # lines of lines: the scaffold-level structure and its N50
+        ll = alines.find_line_lines(D, lines)
+        lens2 = alines.line_line_lengths(lines.lengths(D), ll)
+        canon2 = np.nonzero(np.arange(ll.n_lines) <= ll.linv)[0]
+        self.stats.log("n_line_lines", len(canon2), stage="scaffold")
+        if len(canon2):
+            self.stats.log("line_line_N50", n50(lens2[canon2]), "line-of-lines N50 (bases)",
+                           stage="scaffold")
+
+        if getattr(self, "_molecules", None):
+            bc_counts = aph.build_edge_molecule_counts(D, lines, self._dpaths, self._dlen, rs.bc)
+        else:
+            bc_counts = aph.build_edge_bc_counts(D, self._dpaths, self._dlen, rs.bc)
+        phasings = {}
+        for sc in scaffolds:
+            for li in sc.line_ids:
+                phasings[li] = aph.phase_line(lines.lines[li], bc_counts, dinv=D.dinv)
+
+        het: dict = {}
+        hd = ahet.estimate_hetdist(D, lines, self.device, info=het)
+        if het:
+            self.stage_records.setdefault("scaffold", {}).update(
+                het_pairs=het["pairs"], het_shape=het["shape"], het_dp_s=het["seconds"])
+        if hd is not None:
+            self.stats.log("hetdist_aligned", hd,
+                           "mean distance between het SNPs (arm alignment)", cs=True)
+        return D, lines, scaffolds, phasings
+
+    def stage_fasta(self, bg: dgraph.BaseGraph, flavor: str = "raw", ctx=None) -> Path:
+        """The reference's stage_fasta (run.py:1731-1752): the raw flavor
+        from the graph (one record per rc pair of edges); megabubbles,
+        pseudohap, pseudohap2 and efasta from ctx = (D, lines, scaffolds,
+        phasings), run_full's scaffold stage's output."""
         out = self._fasta_path(flavor)
-        fout.write_raw_fasta(bg, out)
+        if flavor == "raw":
+            fout.write_raw_fasta(bg, out)
+            return out
+        D, lines, scaffolds, phasings = ctx
+        if flavor == "megabubbles":
+            oph.write_megabubbles_fasta(D, lines, scaffolds, phasings, out)
+        elif flavor == "pseudohap":
+            oph.write_pseudohap_fasta(D, lines, scaffolds, phasings, out)
+        elif flavor == "efasta":
+            oef.write_efasta(D, lines, scaffolds, phasings, out)
+        else:
+            oph.write_pseudohap2_fasta(D, lines, scaffolds, phasings, out)
         return out
 
     def stage_patch(self, bg: dgraph.BaseGraph, rp: pather.ReadPaths, rs: ReadSet):

@@ -513,3 +513,39 @@ def test_glue_cuda_equals_cpu(dev, case, monkeypatch):
         assert np.array_equal(getattr(D, f), getattr(H, f)), f
     assert np.array_equal(D.epaths.values, H.epaths.values)
     assert np.array_equal(D.epaths.offsets, H.epaths.offsets)
+
+
+def dp_pairs(seed=5, n=200, max_len=300):
+    """Ragged pairs of lengths 1..max_len, half unrelated, half edited
+    copies (tests/test_torch_alignment.py's kind of input)."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for k in range(n):
+        a = rng.integers(0, 4, int(rng.integers(1, max_len + 1))).astype(np.int32)
+        if k % 2:
+            b = rng.integers(0, 4, int(rng.integers(1, max_len + 1))).astype(np.int32)
+        else:
+            b = a.copy()
+            hits = rng.integers(0, len(b), 4)
+            b[hits] = (b[hits] + 1) % 4
+            b = np.delete(b, hits[:1]) if len(b) > 1 else b
+        pairs.append((a, b))
+    return pairs
+
+
+def test_het_dp_cuda_equals_cpu(dev):
+    """The het DP (ops/alignment.py) on the card equals the same function
+    on CPU tensors: 200 ragged pairs, and one pair at the het estimate's
+    20,000-base cap with SNPs and an indel."""
+    from supernova_tpu_torch.ops import alignment as al
+
+    pairs = dp_pairs()
+    assert np.array_equal(al.align_pairs(pairs, dev), al.align_pairs(pairs, "cpu"))
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, 4, 20_000).astype(np.int32)
+    b = a.copy()
+    b[rng.integers(0, 20_000, 40)] ^= 1
+    b = np.delete(b, 12_345)
+    b = np.insert(b, 777, 2)[:20_000]
+    got = al.align_pairs([(a, b)], dev)
+    assert np.array_equal(got, al.align_pairs([(a, b)], "cpu")) and 0 < got[0] < 40 * al.MIS + 100

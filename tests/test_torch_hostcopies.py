@@ -2,9 +2,12 @@
 dna/ragged/pqvec, stats gems/histograms/logger, the feudal 2-bit packing,
 align rescue/pathzip/index, asm bads/dups/stackster and patch's host half,
 out fasta, ingest fastq/tenx/discovery, pipeline preflight, the native FASTQ
-decoder, the supergraph stage's asm modules and the native glue core)
-against their originals: the same source apart from the note that
-names the original, and the same outputs on the same inputs."""
+decoder, the supergraph stage's asm modules and the native glue core, the
+scaffold stage's asm modules and the out modules of run_full, the count's
+numpy canonicalization and asm/het.py apart from its device) against their
+originals: the same source apart from the note that names the original,
+and the same outputs on the same inputs; and the host graph's kmer words,
+uint32 as the reference's, wherever a graph comes from."""
 import gzip
 import importlib
 import inspect
@@ -17,6 +20,7 @@ import pytest
 
 import supernova_tpu_torch.align.index as p_index
 import supernova_tpu_torch.asm.dups as p_dups
+import supernova_tpu_torch.asm.het as p_het
 import supernova_tpu_torch.asm.patch as p_patch
 import supernova_tpu_torch.asm.stackster as p_stackster
 import supernova_tpu_torch.ingest.discovery as p_discovery
@@ -30,7 +34,10 @@ import supernova_tpu_torch.align.rescue as p_rescue
 import supernova_tpu_torch.asm.bads as p_bads
 import supernova_tpu_torch.core.pqvec as p_pqvec
 import supernova_tpu_torch.core.ragged as p_ragged
+import supernova_tpu_torch.dbg.build as p_build
+import supernova_tpu_torch.dbg.graph as p_graph
 import supernova_tpu_torch.ingest.feudal as p_feudal
+import supernova_tpu_torch.kmer.count as p_count
 import supernova_tpu_torch.ingest.ingest as p_ingest
 import supernova_tpu_torch.ingest.reads as p_reads
 import supernova_tpu_torch.sim.genome as p_sim
@@ -44,6 +51,7 @@ from supernova_tpu.align import rescue as r_rescue
 from supernova_tpu import native as r_native
 from supernova_tpu.asm import bads as r_bads
 from supernova_tpu.asm import dups as r_dups
+from supernova_tpu.asm import het as r_het
 from supernova_tpu.asm import patch as r_patch
 from supernova_tpu.asm import stackster as r_stackster
 from supernova_tpu.ingest import discovery as r_discovery
@@ -75,7 +83,10 @@ COPIES = ["core/dna.py", "core/ragged.py", "core/pqvec.py", "ingest/reads.py",
           "ingest/discovery.py", "pipeline/preflight.py", "asm/dups.py", "asm/stackster.py",
           "asm/gap.py", "asm/lines.py", "asm/molecules.py", "asm/place.py", "asm/closures.py",
           "asm/bubbles.py", "asm/inversion.py", "asm/clean.py", "asm/pullapart.py",
-          "asm/capture.py", "asm/local.py"]
+          "asm/capture.py", "asm/local.py", "asm/links.py", "asm/scaffold.py", "asm/star.py",
+          "asm/gaprika.py", "asm/fillcheck.py", "asm/stackaroo.py", "asm/splat.py",
+          "asm/fixint.py", "asm/barcode_join.py", "asm/phasing.py", "asm/report.py",
+          "out/pseudohap.py", "out/gfa.py", "out/superfiles.py", "out/efasta.py"]
 
 
 @pytest.mark.parametrize("path", COPIES)
@@ -136,12 +147,14 @@ def module_defs(mod):
 
 @pytest.mark.parametrize("mod,ported", [
     ("supergraph", {"closures_to_graph"}), ("nucleate", {"nucleate_graph"}),
-    ("misassembly", {"find_weak_junctions_positional", "break_lines"})])
+    ("misassembly", {"find_weak_junctions_positional", "break_lines",
+                     "kill_misassembled_cells"})])
 def test_supergraph_nucleate_misassembly_are_the_original(mod, ported):
     """asm/supergraph.py and asm/nucleate.py apart from the device seam
     (closures_to_graph and nucleate_graph, which take the device), and
-    asm/misassembly.py apart from the positional rule's loops;
-    tests/test_torch_supergraph.py holds those to the reference."""
+    asm/misassembly.py apart from the positional rule's loops and
+    kill_misassembled_cells' windows; tests/test_torch_supergraph.py and
+    tests/test_torch_scaffold_star.py hold those to the reference."""
     ref = importlib.import_module(f"supernova_tpu.asm.{mod}")
     port = importlib.import_module(f"supernova_tpu_torch.asm.{mod}")
     names = module_defs(ref) - ported
@@ -455,3 +468,54 @@ def test_fasta_dups_and_stackster_outputs_match(placed, tmp_path):
     quals = rng.integers(0, 41, (30, 120)).astype(np.int16)
     for a, b in zip(r_stackster.consensus(bases, quals), p_stackster.consensus(bases, quals)):
         assert np.array_equal(a, b)
+
+
+def test_canon_np_is_the_original():
+    """_rev16_np and _canon_np (asm/fillcheck.py's canonicalization) are the
+    reference's, with the same words out on random uint32 columns."""
+    same_sources(rcount, p_count, ("_rev16_np", "_canon_np"))
+    rng = np.random.default_rng(12)
+    cols = [rng.integers(0, 2**32, 5000, dtype=np.uint64).astype(np.uint32) for _ in range(3)]
+    cols[1][:50] = cols[0][:50]  # ties in the leading words
+    for a, b in zip(rcount._canon_np(*cols), p_count._canon_np(*cols)):
+        assert a.dtype == b.dtype == np.uint32 and np.array_equal(a, b)
+    w = cols[0]
+    assert np.array_equal(rcount._rev16_np(w), p_count._rev16_np(w))
+
+
+def test_het_is_the_original_apart_from_its_device():
+    """asm/het.py: estimate_hetdist's source is the reference's but for its
+    signature (device, info) and the align_pairs call that passes them."""
+    src_r = inspect.getsource(r_het.estimate_hetdist).split("\n")
+    src_p = inspect.getsource(p_het.estimate_hetdist).split("\n")
+    assert src_r[0] == "def estimate_hetdist(D, lines, max_bubbles: int = 200) -> float | None:"
+    assert src_p[:2] == ["def estimate_hetdist(D, lines, device, max_bubbles: int = 200,",
+                         "                     info: dict | None = None) -> float | None:"]
+    assert src_p[2:] == [line.replace("align_pairs_np(pairs)",
+                                      "align_pairs(pairs, device, info=info)")
+                         for line in src_r[1:]]
+    assert p_het.MIS == r_het.MIS and p_het.K == r_het.K
+
+
+def test_graph_kmer_words_are_uint32(placed, tmp_path):
+    """The fill gate (asm/fillcheck.py) and the scaffold stage's ownership
+    context need the host graph's kmer words as uint32: after build_graph
+    (from_device), after a graph.npz reload (the port's and the
+    reference's) and after insert_patches."""
+    rs, rbg, *_ = placed
+    table = p_count.count_readset(rs, "cpu")
+    bg = p_graph.from_device(p_build.build_graph(table), table)
+    bg.save(tmp_path / "graph.npz")
+    rbg.save(tmp_path / "ref_graph.npz")
+    closures = [bg.edges.row(0)[:60].copy(), bg.edges.row(1)[:70].copy()]
+    graphs = {"build": bg, "reload": p_graph.BaseGraph.load(tmp_path / "graph.npz"),
+              "reference reload": p_graph.BaseGraph.load(tmp_path / "ref_graph.npz"),
+              "insert_patches": p_patch.insert_patches(bg, closures, "cpu")}
+    for name, g in graphs.items():
+        assert g.kmer_words.dtype == np.uint32 and g.kmer_words.shape[1] == 3, name
+    assert np.array_equal(graphs["build"].kmer_words, rbg.kmer_words)
+    # the port's checksum (Python integers) is the reference's (numpy scalars)
+    assert graphs["reference reload"].checksum() == rbg.checksum() == bg.checksum()
+    g = graphs["insert_patches"]
+    assert g.checksum() == r_graph.BaseGraph(**{f: getattr(g, f) for f in (
+        "edges", "inv", "from_v", "to_v", "n_vertices", "is_circle")}).checksum()

@@ -121,9 +121,13 @@ def test_exit_alert_refuses_like_the_reference(tmp_path):
 
 
 def test_other_flavors_are_refused_before_any_work(tmp_path):
+    """run() writes the raw flavor, as the reference's does; the others come
+    from run_full's scaffold and phase stages."""
     pl = prun.Pipeline(tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(ValueError, match="run_full"):
         pl.run(None, flavor="pseudohap")
+    with pytest.raises(ValueError, match="unknown flavor"):
+        pl.run(None, flavor="fastb")
     with pytest.raises(ValueError, match="unknown flavor"):
         pl.stage_fasta(None, "fastb")
 

@@ -184,9 +184,10 @@ def test_cuda_device_raises_without_a_card(tmp_path):
 def test_port_never_imports_jax():
     """Importing the port, running a count, single-block and blocked, and
     then 10x FASTQs through preflight, ingest, Pipeline.run, stage_patch
-    and stage_supergraph, and the closure glue on the device route, leaves
-    jax and every supernova_tpu module out of sys.modules (needs its own
-    process: conftest imports jax and the JAX package)."""
+    and stage_supergraph, the closure glue on the device route, and
+    run_full (scaffold phases, phasing, the het DP, every FASTA flavor)
+    leaves jax and every supernova_tpu module out of sys.modules (needs its
+    own process: conftest imports jax and the JAX package)."""
     code = """
 import sys
 import tempfile
@@ -237,6 +238,9 @@ with tempfile.TemporaryDirectory() as d:
     info = {}
     nucleate.nucleate_graph(bg, pl._closures, None, device_glue=True, device="cpu", info=info)
     assert info["glue_route"] == "device"
+    D, lines, scaffolds, phasings, outs = Pipeline(d + "/full", device="cpu").run_full(rs)
+    assert set(outs) == {"raw", "megabubbles", "pseudohap", "pseudohap2"}
+    assert all(p.exists() for p in outs.values()) and scaffolds and phasings
 print("jax" in sys.modules, sorted(m for m in sys.modules
                                     if m.split(".")[0] in ("jax", "jaxlib", "supernova_tpu")))
 """

@@ -33,6 +33,11 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      kernel launched by each CUDA run; then the star-gap CUDA outdir
      resumed with the early phases poisoned: it re-enters after the last
      phase, runs none, launches nothing and writes the same FASTA bytes;
+     then [cli]: the command line on tests/test_cli.py's 6 kb simulation
+     (phase_cli: `run` on the card launching every kernel and equal to
+     `--device cpu`, a stage retried, an injected OOM's exit 185, the
+     no-card refusal, and every tool in a fresh `python -m
+     supernova_tpu_torch` process, each exiting 0 with its JSON);
   5. the slice at one block — a 2 Mb diploid genome (het 0.001), 600
      barcodes x 10 molecules x 50 kb, ~600k 150 bp reads, ~45x — through
      Pipeline(device="cuda").run(): per-stage wall time and peak memory,
@@ -70,9 +75,13 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      same outdir with resume=True: no launch in the count and graph
      stages, no K3 or K2 in the paths stage, the same FASTA bytes; then
      stage_supergraph resumed: no launch, the same D and lines.
-     [scaffold]: run_full on that outdir with resume=True (the patched
-     graph's paths.npz put back after [resume]'s run() re-pathed the base
-     graph): the count and graph stages reload and launch nothing, the
+     [scaffold]: `python -m supernova_tpu_torch run --resume` on that
+     outdir, through cli.main in this process (run_full with resume=True
+     on reads.npz; the patched graph's paths.npz put back after
+     [resume]'s run() re-pathed the base graph): the CLI exits 0, prints
+     summary.json, marks its stages complete in pipestance.json and
+     writes the .mri.tgz bundle; the count and graph stages reload and
+     launch nothing, the
      paths stage is skipped, the patch and supergraph stages re-enter with
      no launch, and the scaffold stage runs on the genome: its phases'
      walls and snapshots, scaffolds, line_line_N50, Flipper phasing, the
@@ -81,7 +90,9 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      flavors (A/C/G/T/N only), the GFA files, the super files, the
      histograms and summary.json written, hetdist_aligned logged, and the
      share of pseudohap contigs (split at N, > 400 bp) that are exact
-     substrings of a simulated haplotype strand.  [patch
+     substrings of a simulated haplotype strand; `evaluate` of the
+     pseudohap against the genome's haplotypes starts in a background
+     process, read before 12 ([evaluate]: anchored_frac > 0.9).  [patch
      kernels]: K1-K4 against their twins at the rebuild count's shapes
      (one strand of every edge plus the closures, unbarcoded, min_freq 1,
      min_read_len K).  The genome's later phases use this FASTQ-ingested
@@ -129,7 +140,8 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
  11. K4 against its twin at the genome's merge shape (its raw row count,
      3 keys) and at its graph's chain-order shape (2 keys, two nodes a
      kmer), and the merge's peak device bytes per raw row;
- 12. no module of the JAX package (or jax) was imported.
+ 12. no module of the JAX package (or jax) was imported, here or in the
+     fresh `python -m supernova_tpu_torch` processes (-X importtime).
 Each phase's wall is printed as a [time] line.  Then one JSON line with
 the kernels (launches from the main path, the fastq run's run(),
 stage_patch and stage_supergraph; patch_launches from its rebuild;
@@ -147,6 +159,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -180,6 +193,57 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+REPO = Path(__file__).resolve().parent
+
+
+def port_cmd(*args):
+    """`python -m supernova_tpu_torch *args` with -X importtime, so that its
+    stderr lists every module the fresh process imported."""
+    return [sys.executable, "-X", "importtime", "-m", "supernova_tpu_torch", *map(str, args)]
+
+
+def foreign_imports(stderr):
+    """The jax and supernova_tpu modules in an -X importtime listing."""
+    names = [line.split("|")[-1].strip() for line in stderr.splitlines()
+             if line.startswith("import time:")]
+    check("supernova_tpu_torch.cli" in names, "a port process did not list its imports")
+    return [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "supernova_tpu")]
+
+
+class Background:
+    """A subprocess run from the repo's root beside the main process: a
+    thread collects its output and its wall, start to exit.  Every one still
+    running when the script ends is killed (stop_all)."""
+
+    started = []
+
+    def __init__(self, cmd, env=None):
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=REPO, env=dict(env or os.environ, PYTHONPATH=str(REPO)),
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.wall = self.out = self.err = None
+        self.thread = threading.Thread(target=self._collect, daemon=True)
+        self.thread.start()
+        Background.started.append(self)
+
+    def _collect(self):
+        self.out, self.err = self.proc.communicate()
+        self.wall = time.perf_counter() - self.t0
+
+    def result(self, timeout=600):
+        """-> (exit code, stdout, stderr) once the process has ended."""
+        self.thread.join(timeout)
+        check(not self.thread.is_alive(), f"{self.proc.args[4:6]} did not end in {timeout} s")
+        return self.proc.returncode, self.out, self.err
+
+    @classmethod
+    def stop_all(cls):
+        for b in cls.started:
+            if b.proc.poll() is None:
+                b.proc.kill()
+                b.proc.wait()
 
 
 def median_ms(torch, fn, reps=5):
@@ -1084,23 +1148,33 @@ def haplotype_share(fasta, strands, min_len=400):
     return len(contigs), sum(any(c in s for s in strands) for c in contigs)
 
 
-def phase_scaffold(torch, dev, rs, outdir):
-    """run_full on the fastq run's outdir with resume=True: the count and
-    graph stages reload their checkpoints and launch nothing, the paths
-    stage is skipped, the patch and supergraph stages re-enter from their
-    checkpoints with no launch, and the scaffold stage runs its phases on
-    the genome (each snapshotted), then phasing and the het DP on the card
-    (held to the same DP on CPU tensors on the genome's own bubble pairs);
-    the four FASTA flavors (A/C/G/T/N only), the GFA files, the super
-    files, the histograms and summary.json are written.  Prints each
-    phase's wall and the share of pseudohap contigs (split at N, > 400 bp)
-    that are exact substrings of a simulated haplotype strand.  (A resumed
+def phase_scaffold(torch, dev, outdir):
+    """`run --resume --out <the fastq run's outdir> --device cuda` through
+    the command line (cli.main, in this process), which loads reads.npz and
+    calls run_full with resume=True: the count and graph stages reload
+    their checkpoints and launch nothing, the paths stage is skipped, the
+    patch and supergraph stages re-enter from their checkpoints with no
+    launch, and the scaffold stage runs its phases on the genome (each
+    snapshotted), then phasing and the het DP on the card (held to the same
+    DP on CPU tensors on the genome's own bubble pairs); the four FASTA
+    flavors (A/C/G/T/N only), the GFA files, the super files, the
+    histograms and summary.json are written; the CLI exits 0, printed
+    summary.json, marked every stage it ran complete in pipestance.json and
+    wrote the .mri.tgz bundle.  Prints each phase's wall, each stage's
+    pipestance.json record and the share of pseudohap contigs (split at N,
+    > 400 bp) that are exact substrings of a simulated haplotype strand.
+    Returns `python -m supernova_tpu_torch evaluate` of the pseudohap FASTA
+    against the genome's haplotypes, started in the background.  (A resumed
     run re-entering after the last phase is checked on the star-gap
     fixture in [small run_full]: the genome takes the legacy scaffolder,
     after which a resumed run first re-enters after starstar and runs the
     other phases, as the reference's does, so two more genome-scale
     run_full calls would be needed; PERF.md section 4.)"""
+    import contextlib
+    import io
+
     import numpy as np
+    from supernova_tpu_torch import cli
     from supernova_tpu_torch.asm import het as ahet
     from supernova_tpu_torch.core import dna
     from supernova_tpu_torch.ops import alignment as al
@@ -1109,22 +1183,38 @@ def phase_scaffold(torch, dev, rs, outdir):
     from supernova_tpu_torch.pipeline.run import Pipeline
 
     asm = f"{outdir}/asm"
-    het_pairs = []
+    het_pairs, runs, bundle_s = [], [], []
 
     def align_spy(pairs, device, **kw):
         het_pairs.extend(pairs)
         return align_pairs(pairs, device, **kw)
 
-    align_pairs = ahet.align_pairs
-    ahet.align_pairs = align_spy
+    def run_full_spy(self, rs, *a, **kw):
+        got = run_full(self, rs, *a, **kw)
+        runs.append((self, got))
+        return got
+
+    def bundle_spy(*a, **kw):
+        t0 = time.perf_counter()
+        path = make_mri_bundle(*a, **kw)
+        bundle_s.append(time.perf_counter() - t0)
+        return path
+
+    align_pairs, run_full, make_mri_bundle = ahet.align_pairs, Pipeline.run_full, cli.make_mri_bundle
+    ahet.align_pairs, Pipeline.run_full, cli.make_mri_bundle = align_spy, run_full_spy, bundle_spy
     kernels.reset_launch_counts()
-    pl = Pipeline(asm, device=dev, resume=True)
+    printed = io.StringIO()
     t0 = time.perf_counter()
     try:
-        D, lines, scaffolds, phasings, outs = pl.run_full(rs)
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(["run", "--resume", "--out", asm, "--device", "cuda"])
     finally:
-        ahet.align_pairs = align_pairs
+        ahet.align_pairs, Pipeline.run_full, cli.make_mri_bundle = (
+            align_pairs, run_full, make_mri_bundle)
     wall = time.perf_counter() - t0
+    check(rc == 0 and len(runs) == 1, f"scaffold: the CLI's run exited {rc}")
+    pl, (D, lines, scaffolds, phasings, outs) = runs[0]
+    check(pl.device == dev and pl.resume, f"scaffold: the CLI built {pl.device}, {pl.resume}")
     recs = pl.stage_records
     for name, rec in recs.items():
         print(f"[scaffold] stage {name}: wall {rec['wall_s']:.3f} s, peak device memory "
@@ -1175,7 +1265,45 @@ def phase_scaffold(torch, dev, rs, outdir):
     n_ctg, n_hit = haplotype_share(outs["pseudohap"], strands)
     print(f"[scaffold] pseudohap contigs (split at N) > 400 bp: {n_hit} of {n_ctg} "
           f"({100 * n_hit / max(n_ctg, 1):.2f}%) are exact substrings of a haplotype strand")
-    print(f"[scaffold] run_full {wall:.3f} s (resumed up to the scaffold stage)")
+    summary = json.loads(Path(asm, "summary.json").read_text())
+    check(json.loads(printed.getvalue()) == summary, "scaffold: the CLI did not print summary.json")
+    state = json.loads(Path(asm, "pipestance.json").read_text())["stages"]
+    for name in recs:
+        check(state.get(name, {}).get("status") == "complete",
+              f"scaffold: pipestance.json has {name} {state.get(name)}")
+    print("[scaffold] pipestance.json (attempts and wall_s add up over the earlier phases' "
+          "orchestrated stages): " + "; ".join(
+              f"{k} {v['status']}, attempts {v['attempts']}, wall_s {v['wall_s']:.3f}"
+              for k, v in state.items()))
+    bundle = Path(asm, "asm.mri.tgz")
+    check(bundle.exists() and len(bundle_s) == 1, "scaffold: the CLI wrote no .mri.tgz bundle")
+    print(f"[scaffold] {bundle.name}: {bundle.stat().st_size} bytes in {bundle_s[0]:.3f} s")
+    print(f"[scaffold] cli.main run --resume: {wall:.3f} s (run_full resumed up to the scaffold "
+          "stage, reads.npz loaded, the bundle)")
+    # evaluate against the truth, beside the later phases (its index is
+    # host work of about a minute at this size); the FASTA is copied out of
+    # asm/, which [patch kernels] removes
+    ev = Path(outdir, "evaluate")
+    ev.mkdir()
+    shutil.copy(outs["pseudohap"], ev / "assembly.pseudohap.fasta.gz")
+    np.save(ev / "hap_a.npy", g)
+    np.save(ev / "hap_b.npy", hb)
+    return Background(port_cmd("evaluate", "--fasta", ev / "assembly.pseudohap.fasta.gz",
+                               "--truth", ev / "hap_a.npy", ev / "hap_b.npy"))
+
+
+def report_evaluate(job):
+    """The genome's `evaluate` (phase_scaffold's background job)."""
+    rc, out, err = job.result()
+    check(rc == 0, f"evaluate: exited {rc}: {err[-2000:]}")
+    check(not foreign_imports(err), f"evaluate imported {foreign_imports(err)[:5]}")
+    res = json.loads(out)
+    print(f"[evaluate] the genome's pseudohap: anchored_frac {res['anchored_frac']}, "
+          f"mean_identity {res['mean_identity']}, misassemblies {res['misassemblies']}, "
+          f"perfect_stretch_N50 {res['perfect_stretch_N50']}, n_contigs {res['n_contigs']}, "
+          f"misassembly_rate_perc {res['misassembly_rate_perc']}; {job.wall:.3f} s "
+          "(a fresh process, beside the phases after [scaffold])")
+    check(res["anchored_frac"] > 0.9, f"evaluate: anchored_frac {res['anchored_frac']}")
 
 
 def phase_small_run_full(torch):
@@ -1236,6 +1364,191 @@ def phase_small_run_full(torch):
             print(f"[small run_full] {name} resumed on cuda with the early phases poisoned: "
                   f"{wall:.3f} s, re-entered after fase, no phase run, no launch, the same four "
                   "FASTA files")
+
+
+# tests/test_cli.py's simulation
+CLI_SIM = ["--genome-size", "6000", "--barcodes", "40", "--whitelist-size", "128",
+           "--repeats", "1"]
+
+
+def cli_outcome(out):
+    """A run dir's four FASTA files, summary.json without its timing keys
+    and pipestance.json's stage states."""
+    summary = json.loads(Path(out, "summary.json").read_text())
+    stages = json.loads(Path(out, "pipestance.json").read_text())["stages"]
+    return ({f: fasta_bytes(Path(out, f)) for f in FLAVOR_FILES},
+            {k: v for k, v in summary.items() if not k.startswith(("etime_", "mem_"))},
+            {k: (v["status"], v["attempts"]) for k, v in stages.items()})
+
+
+def phase_cli(torch, root):
+    """The command line on tests/test_cli.py's simulation: `simulate`, then
+    `run --device cuda` in this process with the launch counters reset
+    (every kernel launched) and `run --device cpu` (the same FASTA files,
+    summary.json and pipestance.json stage states); a stage that raises once
+    (retried: attempts 2, the same bytes) and one that raises
+    torch.cuda.OutOfMemoryError every time (exit 185, the traceback of both
+    attempts, the bundle, no FASTA); `run --device cuda` in a fresh process
+    that sees no card (nonzero, no FASTA); then every tool subcommand as
+    `python -m supernova_tpu_torch <tool>` in fresh processes, all at once,
+    each exiting 0 with its JSON, and none importing jax or supernova_tpu.
+    -> the number of fresh processes checked."""
+    import contextlib
+    import gzip
+    import io
+
+    from supernova_tpu_torch import cli
+    from supernova_tpu_torch.ops import kernels
+    from supernova_tpu_torch.pipeline.run import Pipeline
+
+    def main(argv):
+        printed, t0 = io.StringIO(), time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main([str(a) for a in argv])
+        return rc, printed.getvalue(), time.perf_counter() - t0
+
+    root = Path(root)
+    sim = root / "sim"
+    rc, _, wall = main(["simulate", "--out", sim, *CLI_SIM])
+    check(rc == 0, f"cli: simulate exited {rc}")
+    print(f"[cli] simulate {' '.join(CLI_SIM)}: {wall:.3f} s")
+    fq = ["--r1", sim / "sample_R1.fastq.gz", "--r2", sim / "sample_R2.fastq.gz",
+          "--whitelist", sim / "whitelist.txt"]
+    got = {}
+    for device in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        rc, printed, wall = main(["run", *fq, "--out", root / device, "--device", device])
+        launches = kernels.launch_counts()
+        check(rc == 0 and json.loads(printed)["nreads"] > 0, f"cli: run --device {device} exited {rc}")
+        if device == "cuda":
+            for k, c in launches.items():
+                check(c > 0, f"cli: run --device cuda did not launch {k}")
+        got[device] = cli_outcome(root / device)
+        print(f"[cli] run --device {device}: {wall:.3f} s, launches {launches}, contig_N50 "
+              f"{got[device][1]['contig_N50']}, stages {got[device][2]}")
+    check(got["cuda"] == got["cpu"], "cli: run on cuda and on cpu differ")
+    print("[cli] cuda and cpu: the four FASTA files, summary.json and pipestance.json identical")
+
+    graph, calls = Pipeline.stage_graph, []
+
+    def flaky(self, *a, **kw):
+        calls.append(1)
+        if len(calls) == 1:
+            raise OSError("injected transient failure")
+        return graph(self, *a, **kw)
+    Pipeline.stage_graph = flaky
+    try:
+        rc, _, wall = main(["run", *fq, "--out", root / "retry", "--device", "cuda"])
+    finally:
+        Pipeline.stage_graph = graph
+    check(rc == 0, f"cli: the retried run exited {rc}")
+    outcome = cli_outcome(root / "retry")
+    tb = (root / "retry" / "_stage_graph_traceback.txt").read_text()
+    check(outcome[2]["graph"] == ("complete", 2) and tb.count("--- attempt") == 1,
+          f"cli: the graph stage's record after one failure {outcome[2]['graph']}")
+    check(outcome[0] == got["cuda"][0], "cli: the retried run's FASTA files differ")
+    print(f"[cli] the graph stage raising once: retried (attempts 2, one traceback on file), "
+          f"exit 0, the same FASTA files; {wall:.3f} s")
+
+    def oom(self, rs):
+        raise torch.cuda.OutOfMemoryError("injected: CUDA out of memory")
+    count = Pipeline._count_with_cov_guard
+    Pipeline._count_with_cov_guard = oom
+    try:
+        rc, printed, wall = main(["run", *fq, "--out", root / "oom", "--device", "cuda"])
+    finally:
+        Pipeline._count_with_cov_guard = count
+    state = json.loads((root / "oom" / "pipestance.json").read_text())["stages"]
+    tb = (root / "oom" / "_stage_count_traceback.txt").read_text()
+    check(rc == 185 and not printed, f"cli: a stage raising OutOfMemoryError exited {rc}")
+    check(state == {"count": state["count"]} and state["count"]["status"] == "failed"
+          and state["count"]["attempts"] == 2 and tb.count("--- attempt") == 2
+          and "OutOfMemoryError" in tb, f"cli: the failed count stage's record {state}")
+    check((root / "oom" / "oom.mri.tgz").exists() and not list((root / "oom").glob("*.fasta.gz")),
+          "cli: the failed run wrote no bundle or wrote FASTA")
+    print(f"[cli] the count stage raising torch.cuda.OutOfMemoryError: exit 185, attempts 2, "
+          f"both tracebacks and oom.mri.tgz written, no FASTA; {wall:.3f} s")
+
+    # the tools' inputs: an I1 FASTQ beside the reads for demux; the patched
+    # graph as graph.npz beside its ebcx.npz for graph-stats and scaf-graph,
+    # which read graph.npz (the pre-patch graph, whose edges ebcx.npz does
+    # not index, in a run_full dir: both packages raise there); a copy of
+    # the run dir for tarmri, which writes into it
+    run, tools = root / "cuda", root / "tools"
+    with gzip.open(sim / "sample_R1.fastq.gz", "rt") as f:
+        n_pairs = sum(1 for _ in f) // 4
+    with gzip.open(sim / "I1.fastq.gz", "wt") as f:
+        for i in range(n_pairs):
+            si = ("ACGTACGT", "TTTTCCCC")[i % 2] if i % 50 else "GGGGGGGG"
+            f.write(f"@read{i}\n{si}\n+\nIIIIIIII\n")
+    patched = root / "patched"
+    patched.mkdir()
+    shutil.copy(run / "graph.patched.npz", patched / "graph.npz")
+    shutil.copy(run / "ebcx.npz", patched / "ebcx.npz")
+    shutil.copytree(run, root / "tarmri")
+    truth = ["--truth", sim / "truth_hap_a.npy", sim / "truth_hap_b.npy"]
+    pseudohap = run / "assembly.pseudohap.fasta.gz"
+    head = tools / "ref" / "frag"
+    jobs = {
+        "sitecheck": ["sitecheck"],
+        "stats": ["stats", "--graph", run / "graph.npz"],
+        "mkoutput": ["mkoutput", "--dir", run, "--out", tools / "mk", "--flavors",
+                     "raw,megabubbles,pseudohap,pseudohap2,efasta"],
+        "graph-fasta": ["graph-fasta", "--dir", run, "--out", tools / "edges.fa.gz", "--patched"],
+        "graph-stats": ["graph-stats", "--dir", patched, "--out", tools / "edges.tsv"],
+        "scaf-graph": ["scaf-graph", "--dir", patched, "--out", tools / "scaf.csv",
+                       "--min-ctg", "100"],
+        "bcmat": ["bcmat", "--dir", run, "--out", tools / "bc.mm"],
+        "sam": ["sam", "--dir", run, "--out", tools / "reads.sam.gz"],
+        "readqa": ["readqa", "--dir", run, "--out", tools / "qa", "--whitelist",
+                   sim / "whitelist.txt"],
+        "evaluate": ["evaluate", "--fasta", pseudohap, *truth],
+        "diagnose": ["diagnose", "--fasta", pseudohap, *truth, "--dir", run, "--min-len", "200"],
+        "readcount": ["readcount", "--reads", run / "reads.npz"],
+        "export-ref": ["export-ref", "--dir", run, "--out-head", head, "--graph"],
+        "demux": ["demux", "--si", sim / "I1.fastq.gz", "--reads",
+                  f"R1={sim / 'sample_R1.fastq.gz'}", f"R2={sim / 'sample_R2.fastq.gz'}",
+                  "--out", tools / "demux"],
+        "tarmri": ["tarmri", "--dir", root / "tarmri"],
+    }
+    tools.mkdir()
+    t0 = time.perf_counter()
+    nocard = Background(port_cmd("run", *fq, "--out", root / "nocard", "--device", "cuda"),
+                        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    started = {name: Background(port_cmd(*argv)) for name, argv in jobs.items()}
+    results = {}
+    for name, job in list(started.items()):
+        results[name] = job.result()
+        if name == "export-ref":
+            check(results[name][0] == 0, f"cli: export-ref exited {results[name][0]}")
+            started["import-ref"] = job = Background(port_cmd(
+                "import-ref", "--fastb", f"{head}.fastb", "--qualp", f"{head}.qualp",
+                "--bci", f"{head}.bci", "--out", tools / "imported"))
+            results["import-ref"] = job.result()
+    all_s = time.perf_counter() - t0
+    for name, (rc, out, err) in results.items():
+        check(rc == 0, f"cli: {name} exited {rc}: {err[-1500:]}")
+        check(not foreign_imports(err), f"cli: {name} imported {foreign_imports(err)[:5]}")
+        if name == "mkoutput":
+            shown = [Path(line).name for line in out.split()]
+            check(len(shown) == 5 and all(Path(line).exists() for line in out.split()),
+                  f"cli: mkoutput printed {out!r}")
+        else:
+            shown = json.loads(out.strip().splitlines()[-1] if name == "diagnose" else out)
+        if name == "sitecheck":
+            check([d["name"] for d in shown["cuda_devices"]][:1] == [torch.cuda.get_device_name(0)],
+                  f"cli: sitecheck named {shown['cuda_devices']}")
+            shown = {k: shown[k] for k in ("torch_version", "cuda_version", "cuda_devices",
+                                           "nvcc_on_path")}
+        print(f"[cli] {name}: exit 0 in {started[name].wall:.3f} s; {json.dumps(shown)[:300]}")
+    rc, _, err = nocard.result()
+    check(rc != 0 and not list((root / "nocard").glob("*.fasta.gz")),
+          f"cli: run --device cuda without a visible card exited {rc}")
+    check(not foreign_imports(err), f"cli: the no-card run imported {foreign_imports(err)[:5]}")
+    print(f"[cli] CUDA_VISIBLE_DEVICES= run --device cuda: exit {rc}, no FASTA, "
+          f"{nocard.wall:.3f} s; ({err.strip().splitlines()[-1][:200]})")
+    print(f"[cli] {len(results)} tools and the no-card run: {all_s:.3f} s in all, in parallel")
+    return len(results) + 1
 
 
 def phase_kernels_patch(torch, dev, bg, outdir, res, save_s):
@@ -1833,6 +2146,7 @@ def main() -> int:
         if writer.is_alive():
             writer.terminate()
         writer.join()
+        Background.stop_all()
         shutil.rmtree(genome_dir, ignore_errors=True)
 
 
@@ -1871,6 +2185,8 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
     timed("small run_full", phase_small_run_full, torch)
     del rs_small
     with tempfile.TemporaryDirectory() as d:
+        n_fresh = timed("cli", phase_cli, torch, d)
+    with tempfile.TemporaryDirectory() as d:
         timed("full", phase_slice, torch, rs_full, "full", d)
     del rs_full
     torch.cuda.empty_cache()
@@ -1886,7 +2202,7 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
     torch.cuda.empty_cache()
     timed("resume", phase_resume, torch, rs_genome, d, sg)
     torch.cuda.empty_cache()
-    timed("scaffold", phase_scaffold, torch, dev, rs_genome, d)
+    evaluate = timed("scaffold", phase_scaffold, torch, dev, d)
     torch.cuda.empty_cache()
     timed("patch kernels", phase_kernels_patch, torch, dev, bg, d, kres,
           patch_rec.get("save_s", 0.0))
@@ -1919,9 +2235,12 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
     torch.cuda.empty_cache()
     timed("graph sort", phase_graph_sort, torch, table.n_valid)
 
+    timed("evaluate wait", report_evaluate, evaluate)
+
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "supernova_tpu"))
     check(not jax_mods, f"the port imported {jax_mods[:5]}")
-    print("[imports] no jax and no supernova_tpu module in sys.modules")
+    print(f"[imports] no jax and no supernova_tpu module in sys.modules, nor in the "
+          f"{n_fresh + 1} fresh `python -m supernova_tpu_torch` processes ([cli], [evaluate])")
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],

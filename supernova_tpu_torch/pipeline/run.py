@@ -29,9 +29,12 @@ het DP's pairs, shape and seconds.  finalize() writes summary.json,
 summary_cs.csv, stats/summary.txt and alerts.json; all_stats.json is
 rewritten after every timed stage.
 
-The reference wraps each of run_full's stages in its orchestrator
-(pipestance.json, one retry of a stage that raises); the port runs each
-stage once.
+As the reference's, run_full's timed stages run inside the orchestrator
+(pipeline/orchestrate.py): pipestance.json records each stage's status,
+attempts and wall, a stage that raises is run once more, and one that
+raises again raises StageError after writing _stage_<name>_traceback.txt.
+run() and run_slice() time their stages without it, so that, as the
+reference's run(), they write no pipestance.json.
 """
 from __future__ import annotations
 
@@ -94,6 +97,7 @@ from ..stats import gems as sgems
 from ..stats import histograms as hist
 from ..stats.logger import StatLogger, n50
 from ..stats.trace import stage
+from .orchestrate import Orchestrator
 
 log = logging.getLogger("supernova_tpu_torch")
 
@@ -126,8 +130,15 @@ class Pipeline:
         self.auto_downsample = auto_downsample
         self.stage_records: dict[str, dict] = {}
         self._t_start = time.time()
+        self.orch = Orchestrator(self.outdir)
 
     def _timed(self, name, fn, *a, **kw):
+        """One of run_full's stages: _stage inside the orchestrator's
+        run_stage (pipestance.json, one retry), as the reference's _timed
+        (run.py:99-110)."""
+        return self.orch.run_stage(name, lambda: self._stage(name, fn, *a, **kw))
+
+    def _stage(self, name, fn, *a, **kw):
         """Run one stage under the stage timer, note the kernel launches
         made in it (the record's "launches") and persist the stats."""
         rec = self.stage_records.setdefault(name, {})
@@ -146,7 +157,7 @@ class Pipeline:
             raise ValueError(f"run() writes the raw flavor; {flavor!r} needs the scaffold "
                              "and phase stages: call run_full")
         _, bg, _ = self.run_slice(rs)
-        path = self._timed("fasta", self.stage_fasta, bg, flavor)
+        path = self._stage("fasta", self.stage_fasta, bg, flavor)
         self.finalize()
         return bg, path
 
@@ -154,14 +165,14 @@ class Pipeline:
         """run()'s stages up to the FASTA -> (KmerTable, BaseGraph,
         ReadPaths), for callers that check the count's table or the
         pather's own ReadPaths (tests/, chip_smoke.py)."""
-        rs = self._timed("ingest", self.stage_ingest, rs)
+        rs = self._stage("ingest", self.stage_ingest, rs)
         exits = self.stats.exit_alerts()
         if exits:
             self.finalize()
             raise RuntimeError(f"preflight exit alerts: {exits}")
-        table, rs = self._timed("count", self._count_with_cov_guard, rs)
-        bg = self._timed("graph", self.stage_graph, table)
-        return table, bg, self._timed("paths", self.stage_paths, bg, rs)
+        table, rs = self._stage("count", self._count_with_cov_guard, rs)
+        bg = self._stage("graph", self.stage_graph, table)
+        return table, bg, self._stage("paths", self.stage_paths, bg, rs)
 
     def run_full(self, rs: ReadSet, flavors=("raw", "megabubbles", "pseudohap", "pseudohap2")):
         """The reference's run_full (run.py:1769-1893), step for step: ingest,

@@ -549,3 +549,41 @@ def test_het_dp_cuda_equals_cpu(dev):
     b = np.insert(b, 777, 2)[:20_000]
     got = al.align_pairs([(a, b)], dev)
     assert np.array_equal(got, al.align_pairs([(a, b)], "cpu")) and 0 < got[0] < 40 * al.MIS + 100
+
+
+def test_cli_run_cuda_equals_cpu(dev, tmp_path):
+    """`python -m supernova_tpu_torch run` in process, on the card and on the
+    CPU, on tests/test_cli.py's simulation: the card's run launches every
+    kernel; the four FASTA files, summary.json (timing keys aside) and
+    pipestance.json's stage states are the same."""
+    import contextlib
+    import gzip
+    import io
+    import json
+
+    from supernova_tpu_torch import cli
+
+    sim = tmp_path / "sim"
+    assert cli.main(["simulate", "--out", str(sim), "--genome-size", "6000", "--barcodes", "40",
+                     "--whitelist-size", "128", "--repeats", "1"]) == 0
+    got = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / device
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["run", "--r1", str(sim / "sample_R1.fastq.gz"), "--r2",
+                           str(sim / "sample_R2.fastq.gz"), "--whitelist",
+                           str(sim / "whitelist.txt"), "--out", str(out), "--device", device])
+        assert rc == 0
+        if device == "cuda":
+            assert all(c > 0 for c in kernels.launch_counts().values()), kernels.launch_counts()
+        fastas = {}
+        for flavor in ("raw", "megabubbles", "pseudohap", "pseudohap2"):
+            with gzip.open(out / f"assembly.{flavor}.fasta.gz", "rb") as f:
+                fastas[flavor] = f.read()
+        summary = {k: v for k, v in json.loads((out / "summary.json").read_text()).items()
+                   if not k.startswith(("etime_", "mem_"))}
+        stages = {k: (v["status"], v["attempts"]) for k, v in
+                  json.loads((out / "pipestance.json").read_text())["stages"].items()}
+        got[device] = (fastas, summary, stages)
+    assert got["cuda"] == got["cpu"]

@@ -184,11 +184,16 @@ def test_cuda_device_raises_without_a_card(tmp_path):
 def test_port_never_imports_jax():
     """Importing the port, running a count, single-block and blocked, and
     then 10x FASTQs through preflight, ingest, Pipeline.run, stage_patch
-    and stage_supergraph, the closure glue on the device route, and
-    run_full (scaffold phases, phasing, the het DP, every FASTA flavor)
-    leaves jax and every supernova_tpu module out of sys.modules (needs its
-    own process: conftest imports jax and the JAX package)."""
+    and stage_supergraph, the closure glue on the device route, run_full
+    (scaffold phases, phasing, the het DP, every FASTA flavor), and the
+    command line's simulate and `run --device cpu` leaves jax and every
+    supernova_tpu module out of sys.modules (needs its own process: conftest
+    imports jax and the JAX package); nor does `python -m
+    supernova_tpu_torch --help` import one (-X importtime lists every
+    import)."""
     code = """
+import contextlib
+import io
 import sys
 import tempfile
 import numpy as np
@@ -241,6 +246,13 @@ with tempfile.TemporaryDirectory() as d:
     D, lines, scaffolds, phasings, outs = Pipeline(d + "/full", device="cpu").run_full(rs)
     assert set(outs) == {"raw", "megabubbles", "pseudohap", "pseudohap2"}
     assert all(p.exists() for p in outs.values()) and scaffolds and phasings
+    from supernova_tpu_torch import cli
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["simulate", "--out", d + "/sim", "--genome-size", "6000", "--barcodes",
+                         "40", "--whitelist-size", "128", "--repeats", "1"]) == 0
+        assert cli.main(["run", "--r1", d + "/sim/sample_R1.fastq.gz", "--r2",
+                         d + "/sim/sample_R2.fastq.gz", "--whitelist", d + "/sim/whitelist.txt",
+                         "--out", d + "/cli", "--device", "cpu"]) == 0
 print("jax" in sys.modules, sorted(m for m in sys.modules
                                     if m.split(".")[0] in ("jax", "jaxlib", "supernova_tpu")))
 """
@@ -250,3 +262,10 @@ print("jax" in sys.modules, sorted(m for m in sys.modules
                          cwd=REPO, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "False []"
+    res = subprocess.run([sys.executable, "-X", "importtime", "-m", "supernova_tpu_torch", "--help"],
+                         capture_output=True, text=True, cwd=REPO, env=env, timeout=120)
+    assert res.returncode == 0 and "usage: supernova_tpu_torch" in res.stdout, res.stderr
+    imported = [line.split("|")[-1].strip() for line in res.stderr.splitlines()
+                if line.startswith("import time:")]
+    assert "supernova_tpu_torch.cli" in imported
+    assert not [m for m in imported if m.split(".")[0] in ("jax", "jaxlib", "supernova_tpu")]

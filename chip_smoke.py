@@ -142,11 +142,31 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      kmer), and the merge's peak device bytes per raw row;
  12. no module of the JAX package (or jax) was imported, here or in the
      fresh `python -m supernova_tpu_torch` processes (-X importtime).
+The mesh path (after 5, on the full slice; MESH_SHARDS = 4 virtual shards,
+all on cuda:0): [mesh] sharded_count and sharded_count_hier ((2, 2)), each
+shard's table equal to the single-device table's rows of that shard's
+kmer hash and the merged table equal to it, overflow 0; sharded_build_graph
+equal to the Pipeline's BaseGraph array for array; the Pipeline's mesh
+pather with the dictionary replicated and value-sharded (PATH_VS_DICT_ROWS
+forced to 0), ReadPaths equal to path_readset's; Pipeline(multi_device=
+(1, 4)).run() on the 8 kb slice equal to the single-device run (FASTA, npz
+files, summary.json; n_shards and n_shards_path 4, no overflow recount);
+the launch counters set to 0 just before these calls and read just after,
+every kernel launched; K1-K4 against their twins at shard 0's shapes; walls
+and peaks beside the card's name and power limit, marked as virtual shards.
+[mesh glue] (after 6's glue): glue_closures_sharded over the 4 shards on
+the genome's closures, the one-device glue's partition, overflow 0.
+[bench] (after 11, nothing else on the card): `python -m
+supernova_tpu_torch bench` in a fresh process at the reference's sizes,
+both JSON lines parsed, the count line first; beside it the same without a
+visible card, which must exit nonzero and print no result.  Every
+phase_slice run prints each stage's mem_peak_host_<stage>_gb.
 Each phase's wall is printed as a [time] line.  Then one JSON line with
 the kernels (launches from the main path, the fastq run's run(),
 stage_patch and stage_supergraph; patch_launches from its rebuild;
 supergraph_launches from stage_supergraph; mixed_launches from the mixed
-genome's run(); mixed_* times from 8, patch_* and glue times from 6),
+genome's run(); mesh_launches from [mesh], mesh_glue_launches from [mesh
+glue]; mixed_* times from 8, patch_*, glue and mesh times from 6 and [mesh]),
 the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 Exits nonzero without a GPU.
 """
@@ -597,7 +617,8 @@ def check_compact(torch, keep, cols, label):
 
 
 def print_kernel(name, r):
-    lib = f", library {r['library_ms']:.3f} ms ({r['library_shape']})" if "library_ms" in r else ""
+    lib = (f", library {r['library_ms']:.3f} ms ({r['library_shape']})"
+           if r.get("library_ms") is not None else "")
     print(f"[kernels] {name}: {r['shape']}: exact (max_abs_err {r['max_abs_err']}); "
           f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
           f"bound {r['bound_ms']:.3f} ms{lib}")
@@ -698,7 +719,9 @@ def phase_slice(torch, rs, tag, outdir, min_blocks=None):
              if os.path.exists(f"{outdir}/{name}")}
     for name, rec in pl.stage_records.items():
         print(f"[{tag}] stage {name}: wall {rec['wall_s']:.3f} s, "
-              f"peak device memory {rec['peak_gb']:.3f} GiB")
+              f"peak device memory {rec['peak_gb']:.3f} GiB, mem_peak_host_{name}_gb "
+              f"{pl.stats.get(f'mem_peak_host_{name}_gb')}")
+        check(rec["host_peak_gb"] > 0, f"{tag}: stage {name} logged no host peak")
     crec, prec = pl.stage_records["count"], pl.stage_records["paths"]
     if min_blocks is not None:
         print(f"[{tag}] count: {crec.get('blocks')} blocks of {crec.get('block_rows')} raw "
@@ -731,6 +754,290 @@ def phase_slice(torch, rs, tag, outdir, min_blocks=None):
     for name, c in launches.items():
         check(c > 0, f"kernel {name} was not launched by the main path")
     return launches, crec, convert.table_to_numpy(table), bg, pl
+
+
+MESH_SHARDS = 4  # virtual shards, all on cuda:0 on a one-card host
+
+
+def mesh_kernels(torch, mesh, inputs, res):
+    """K1-K4 against their twins at one shard's shapes (shard 0 of the
+    4-shard count: its read block's codes, then the occurrence rows the
+    exchange gave it, sorted, reduced and compacted); adds a mesh_* entry
+    to each kernel of `res`."""
+    from supernova_tpu_torch.core.kmer_codec import W3
+    from supernova_tpu_torch.kmer import count as kcount
+    from supernova_tpu_torch.ops.kernels import kmer_extract as k1
+    from supernova_tpu_torch.ops.kernels import run_reduce as k3
+    from supernova_tpu_torch.parallel import sharded_count as psc
+
+    codes, n = inputs[0]["codes_ext"], inputs[0]["pos_read"].shape[0]
+    got, ref = k1.sliding_words_cuda(codes, n), k1.sliding_words_plain(codes, n)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)), "mesh: K1 differs from plain")
+    res["kmer_extract"]["mesh"] = dict(
+        shape=f"{n} positions (shard 0 of {MESH_SHARDS})",
+        max_abs_err=max_abs_err(torch, zip(got, ref)),
+        ms=median_ms(torch, lambda: k1.sliding_words_cuda(codes, n)),
+        plain_ms=median_ms(torch, lambda: k1.sliding_words_plain(codes, n)),
+        bound_ms=bound_ms(codes.numel() * 4 + n * 3 * 8))
+    print_kernel("kmer_extract (mesh shard)", res["kmer_extract"]["mesh"])
+    del got, ref
+    cols, keys = [], []
+    for inp in inputs:
+        rows, valid = psc._occurrences(inp)
+        cols.append(rows)
+        keys.append(torch.where(valid, psc.kmer_shard_hash(W3(*rows[:, :3].T)) % mesh.size,
+                                mesh.size))
+    recv = mesh.exchange(cols, keys, mesh.size)[0][0]
+    del cols, keys
+    keys4 = [recv[:, j].contiguous() for j in range(4)]
+    rows = keys4[0].shape[0]
+    r, perm = check_sort(torch, keys4, f"{rows} rows x 4 keys (shard 0's received rows)")
+    res["sort"]["mesh"] = {k: r[k] for k in COMMON_KEYS + ("shape", "library_shape")}
+    ws = [k[perm] for k in keys4]
+    mf, mb = kcount.MIN_FREQ, kcount.MIN_BC
+    got = k3.run_reduce_cuda(*ws, mf, mb)
+    ref = k3.run_reduce_plain(*ws, mf, mb)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)), "mesh: K3 differs from plain")
+    res["run_reduce"]["mesh"] = dict(
+        shape=f"{rows} rows (shard 0)", max_abs_err=max_abs_err(torch, zip(got, ref)),
+        ms=median_ms(torch, lambda: k3.run_reduce_cuda(*ws, mf, mb)),
+        plain_ms=median_ms(torch, lambda: k3.run_reduce_plain(*ws, mf, mb)),
+        bound_ms=bound_ms(rows * (4 * 8 + 1 + 4 + 4)), library_ms=None)
+    print_kernel("run_reduce (mesh shard)", res["run_reduce"]["mesh"])
+    keep, count, stats = got
+    r, _ = compact_kept(torch, keep, (ws[0], ws[1], ws[2], count, stats), "mesh shard 0")
+    res["compact"]["mesh"] = {k: r[k] for k in COMMON_KEYS + ("shape", "library_shape")}
+    print_kernel("compact (mesh shard)", res["compact"]["mesh"])
+
+
+def phase_mesh(torch, rs, bg, dev, smi, res):
+    """The multi-shard layer on the full slice over MESH_SHARDS virtual
+    shards on one card, the launch counters set to 0 just before the mesh
+    calls and read just after: sharded_count (4 shards) and
+    sharded_count_hier ((2, 2)), each shard's table equal to the
+    single-device table's rows of that shard's hash and the merged table
+    equal to it, overflow 0; sharded_build_graph equal to the Pipeline's
+    BaseGraph array for array; the Pipeline's mesh pather with the
+    dictionary replicated and value-sharded (PATH_VS_DICT_ROWS forced to
+    0), ReadPaths[:n_reads] equal to path_readset's; then
+    Pipeline(multi_device=(1, 4)).run() on the 8 kb slice equal to the
+    single-device run (FASTA, npz files, summary.json), n_shards and
+    n_shards_path 4, no overflow recount.  Every kernel must launch inside
+    the mesh calls.  Walls on the host clock, each ending in a sync; the
+    shards are virtual shards on one card, not a scaling number.  Returns
+    the launches."""
+    import numpy as np
+    from supernova_tpu_torch import convert
+    from supernova_tpu_torch.align import pather
+    from supernova_tpu_torch.dbg import build as dbuild
+    from supernova_tpu_torch.kmer import count as kcount
+    from supernova_tpu_torch.ops import kernels
+    from supernova_tpu_torch.parallel import mesh as pmesh
+    from supernova_tpu_torch.parallel import sharded_build as psb
+    from supernova_tpu_torch.parallel import sharded_count as psc
+    from supernova_tpu_torch.pipeline import datasets
+    from supernova_tpu_torch.pipeline import run as prun
+
+    inp = kcount.prepare_reads(rs, dev)
+    single = dbuild.trim_table(kcount.count_kmers(
+        inp["codes_ext"], inp["pos_read"], inp["glen_pos"], inp["bc_pos"],
+        uniform_rl=inp["uniform_rl"]))
+    del inp
+    n = int(single.n_valid)
+    owner = (psc.kmer_shard_hash(type(single.words)(*(w[:n] for w in single.words)))
+             % MESH_SHARDS).cpu().numpy()
+    want = convert.table_to_numpy(single)
+    rp_single = convert.readpaths_to_numpy(pather.path_readset(bg, rs, dev))
+    del single
+    torch.cuda.empty_cache()
+    fields = ("count", "nbc", "left_mask", "right_mask")
+
+    def same_rows(t, sel, label):
+        h = convert.table_to_numpy(t)
+        m = h.n_valid
+        check(m == int(sel.sum()), f"mesh: {label}: {m} kmers, not {int(sel.sum())}")
+        for j in range(3):
+            check(np.array_equal(h.words[j][:m], want.words[j][:n][sel]), f"mesh: {label} words")
+        for f in fields:
+            check(np.array_equal(getattr(h, f)[:m], getattr(want, f)[:n][sel]), f"mesh: {label} {f}")
+
+    walls = {}
+
+    def timed_call(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    # the 8 kb single-device run, outside the launch window
+    d = tempfile.mkdtemp()
+    rs_small = datasets.simulate(datasets.SMALL, datasets.SMALL_SEED)
+    pl1 = prun.Pipeline(f"{d}/single", device=dev, multi_device=False)
+    fa1 = fasta_bytes(pl1.run(rs_small)[1])
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = pmesh.make_mesh(MESH_SHARDS, dev)
+    inputs, nbl = psc.split_readset(rs, mesh)
+    tables, ovf = timed_call("sharded_count", lambda: psc.sharded_count(mesh, inputs, 4 * nbl))
+    check(sum(ovf) == 0, f"mesh: sharded_count overflow {ovf}")
+    for s, t in enumerate(tables):
+        same_rows(t, owner == s, f"shard {s} of sharded_count")
+    merged = psc.merge_shard_tables(tables, dev)
+    same_rows(merged, np.ones(n, bool), "merge_shard_tables")
+    del merged
+    mesh2 = pmesh.make_mesh2(2, MESH_SHARDS // 2, dev)
+    inputs2, _ = psc.split_readset(rs, mesh2)
+    tables2, ovf2 = timed_call("sharded_count_hier",
+                               lambda: psc.sharded_count_hier(mesh2, inputs2, 4 * nbl))
+    check(sum(ovf2) == 0, f"mesh: sharded_count_hier overflow {ovf2}")
+    for s, t in enumerate(tables2):
+        same_rows(t, owner == s, f"shard {s} of sharded_count_hier")
+    del tables2, inputs2
+    count_peak = torch.cuda.max_memory_allocated() / 2**30
+    count_launches = kernels.launch_counts()
+    mesh_kernels(torch, mesh, inputs, res)
+    del inputs
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()  # the comparisons' launches do not count
+    torch.cuda.reset_peak_memory_stats()
+    bg_m = timed_call("sharded_build_graph", lambda: psb.sharded_build_graph(mesh, tables, dev))
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    del tables
+    for f in ("inv", "from_v", "to_v", "is_circle", "kmer_words", "node_edge", "node_pos"):
+        a, b = getattr(bg_m, f), getattr(bg, f)
+        check(a.dtype == b.dtype and np.array_equal(a, b), f"mesh: sharded build {f} differs")
+    check(np.array_equal(bg_m.edges.values, bg.edges.values)
+          and np.array_equal(bg_m.edges.offsets, bg.edges.offsets), "mesh: sharded build edges")
+    check(bg_m.n_vertices == bg.n_vertices, "mesh: sharded build n_vertices")
+    try:
+        pl = prun.Pipeline(f"{d}/paths", device=dev, multi_device=(1, MESH_SHARDS))
+        saved = prun.PATH_VS_DICT_ROWS
+        for vs in (False, True):
+            prun.PATH_VS_DICT_ROWS = 0 if vs else saved
+            try:
+                rp = timed_call("sharded_path_vs" if vs else "sharded_path",
+                                lambda: pl._path_sharded(bg, rs, MESH_SHARDS))
+            finally:
+                prun.PATH_VS_DICT_ROWS = saved
+            check(pl.stats.get("path_dict_sharded") == int(vs), "mesh: wrong dictionary layout")
+            got = convert.readpaths_to_numpy(rp)
+            for f in got._fields:
+                check(np.array_equal(getattr(got, f), getattr(rp_single, f)[: rs.n_reads]),
+                      f"mesh: {'value-sharded' if vs else 'replicated'} pather {f} differs")
+            del rp, got
+        torch.cuda.empty_cache()
+
+        pl4 = prun.Pipeline(f"{d}/mesh", device=dev, multi_device=(1, MESH_SHARDS))
+        fa4 = fasta_bytes(timed_call("Pipeline((1, 4)).run 8 kb", lambda: pl4.run(rs_small))[1])
+        check(fa4 == fa1, "mesh: Pipeline((1, 4)).run() FASTA differs from the single device's")
+        for name in ("kmers.npz", "graph.npz", "paths.npz", "ebcx.npz"):
+            za, zb = np.load(f"{d}/single/{name}"), np.load(f"{d}/mesh/{name}")
+            check(sorted(za.files) == sorted(zb.files)
+                  and all(np.array_equal(za[k], zb[k]) for k in za.files),
+                  f"mesh: Pipeline((1, 4)).run() {name} differs")
+        summ = [{k: v for k, v in json.loads(Path(d, t, "summary.json").read_text()).items()
+                 if not k.startswith(("etime_", "mem_"))} for t in ("single", "mesh")]
+        check(summ[0] == summ[1], "mesh: Pipeline((1, 4)).run() summary.json differs")
+        crec = pl4.stage_records["count"]
+        check((pl4.stats.get("n_shards"), pl4.stats.get("n_shards_path")) == (4, 4)
+              and crec.get("count_route") == "mesh" and crec.get("count_overflow") == 0,
+              f"mesh: Pipeline((1, 4)).run() took n_shards {pl4.stats.get('n_shards')}, "
+              f"n_shards_path {pl4.stats.get('n_shards_path')}, route {crec.get('count_route')}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = {k: v + count_launches[k] for k, v in kernels.launch_counts().items()}
+    print(f"[mesh] {smi}: {MESH_SHARDS} VIRTUAL shards on one card (not a scaling number); "
+          f"full slice {rs.n_reads} reads, {n} kmers; walls (host clock, synchronized): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
+    print(f"[mesh] sharded counts: every shard's table == the single-device table's rows of "
+          f"its hash (shards {np.bincount(owner, minlength=MESH_SHARDS).tolist()} kmers), merged "
+          f"== single, overflow 0, peak device memory {count_peak:.3f} GiB; sharded build == "
+          f"the Pipeline's BaseGraph ({bg.n_edges} edges), peak {build_peak:.3f} GiB; mesh "
+          f"pather (replicated, value-sharded) == path_readset; Pipeline((1, 4)).run() on 8 kb "
+          f"== single device, n_shards 4, n_shards_path 4, count_route mesh")
+    print(f"[mesh] launches {launches}")
+    for name, c in launches.items():
+        check(c > 0, f"mesh: kernel {name} was not launched on the mesh path")
+    return launches
+
+
+def phase_mesh_glue(torch, dev, sg, rs, outdir, smi):
+    """glue_closures_sharded over MESH_SHARDS virtual shards on the card, on
+    the genome's glue inputs (the closures stage_supergraph glued): the
+    partition of the one-device glue (glue_closures_device on the card),
+    overflow 0."""
+    import numpy as np
+    from supernova_tpu_torch.asm import nucleate as anuc
+    from supernova_tpu_torch.ops import kernels
+    from supernova_tpu_torch.parallel import device_nucleate as dn
+    from supernova_tpu_torch.parallel import mesh as pmesh
+    from supernova_tpu_torch.parallel import sharded_nucleate as psn
+
+    _, cls = glue_inputs(sg["bg"], sg["rp"], rs, outdir)
+    info = {}
+    want = dn.glue_closures_device(sg["bg"], cls, anuc.MIN_OVER_BASES, True, dev, info=info)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, ovf = psn.glue_closures_sharded(pmesh.make_mesh(MESH_SHARDS, dev), sg["bg"], cls,
+                                         anuc.MIN_OVER_BASES, True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check(ovf == 0, f"mesh glue: overflow {ovf}")
+
+    def canon(labels):
+        first = {}
+        return [first.setdefault(int(x), i) for i, x in enumerate(labels)]
+
+    check(len(got) == len(want) and canon(got) == canon(want),
+          "mesh glue: the partition differs from the one-device glue's")
+    for name in ("sort", "compact"):
+        check(launches[name] > 0, f"mesh glue: {name} was not launched")
+    print(f"[mesh glue] {smi}: glue_closures_sharded over {MESH_SHARDS} VIRTUAL shards on one "
+          f"card == glue_closures_device's partition ({len(got)} boundaries, "
+          f"{len(np.unique(got))} classes, P {info['positions']}), overflow 0; {wall:.3f} s "
+          f"(host clock); launches {launches}")
+    return launches
+
+
+def phase_bench(torch):
+    """`python -m supernova_tpu_torch bench` in a fresh process with nothing
+    else on the card (the reference's sizes): both JSON lines, the count
+    line first; beside it `bench` with no card visible, which must exit
+    nonzero and print no result."""
+    no_card = Background(port_cmd("bench"), env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "supernova_tpu_torch", "bench"], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"bench: exit {res.returncode}: {res.stderr[-1000:]}")
+    lines = [json.loads(x) for x in res.stdout.strip().splitlines()]
+    check(len(lines) == 2 and all(x["metric"] == "kmer_count_throughput" for x in lines),
+          f"bench: printed {res.stdout[-500:]}")
+    first, second = lines
+    check(first["extra"].get("pather") == "pending" and "reads_aligned_per_s" in second["extra"],
+          "bench: the count line did not come first, or the pather line has no pather")
+    ex = second["extra"]
+    print(f"[bench] kmer_count_throughput value {second['value']} kmers/s/chip (vs_baseline "
+          f"{second['vs_baseline']}), reads_aligned_per_s {ex['reads_aligned_per_s']} "
+          f"(pather_vs_baseline {ex['pather_vs_baseline']}), placed_frac {ex['placed_frac']}; "
+          f"n_valid {ex['n_valid']}; the bench process {wall:.1f} s")
+    rc, out, err = no_card.result(120)
+    check(rc != 0 and not out.strip(), f"bench without a card exited {rc}, printed {out[-200:]}")
+    said = [line for line in err.splitlines() if line.startswith("ERROR")]
+    print(f"[bench] CUDA_VISIBLE_DEVICES= python -m supernova_tpu_torch bench: exit {rc}, no "
+          f"result ({said[-1] if said else 'no message'})")
+    check(not foreign_imports(err), "bench: the no-card process imported jax or supernova_tpu")
 
 
 # 10x lanes the genome's FASTQs are written as, one process each
@@ -863,7 +1170,8 @@ def phase_fastq_run(torch, dev, outdir, writer):
     rec = pl.stage_records["patch"]
     pairs, closed = pl.stats.get("gap_pairs"), pl.stats.get("gap_closures")
     print(f"[fastq run] stage patch: wall {rec['wall_s']:.3f} s, peak device memory "
-          f"{rec['peak_gb']:.3f} GiB; gap_pairs {pairs}, gap_closures {closed}; find "
+          f"{rec['peak_gb']:.3f} GiB, mem_peak_host_patch_gb "
+          f"{pl.stats.get('mem_peak_host_patch_gb')}; gap_pairs {pairs}, gap_closures {closed}; find "
           f"{pl.stats.get('etime_patch_find_s'):.3f} s, close "
           f"{pl.stats.get('etime_patch_close_s'):.3f} s, rebuild "
           f"{pl.stats.get('etime_patch_rebuild_s')} s, re-path "
@@ -922,8 +1230,9 @@ def phase_supergraph(torch, pl, bg, rp, rs):
     rec = pl.stage_records["supergraph"]
     st = pl.stats.get
     print(f"[supergraph] stage_supergraph: wall {rec['wall_s']:.3f} s, peak device memory "
-          f"{rec['peak_gb']:.3f} GiB; glue_route {rec.get('glue_route')}, closure positions "
-          f"P {rec.get('glue_positions')}, overflow (candidates, long pairs, union pairs) "
+          f"{rec['peak_gb']:.3f} GiB, mem_peak_host_supergraph_gb "
+          f"{st('mem_peak_host_supergraph_gb')}; glue_route {rec.get('glue_route')}, closure "
+          f"positions P {rec.get('glue_positions')}, overflow (candidates, long pairs, union pairs) "
           f"{rec.get('glue_overflow')}; launches {launches}")
     print(f"[supergraph] n_closures {st('n_closures')}, closures_trimmed "
           f"{st('closures_trimmed')}, supergraph_mode {st('supergraph_mode')}, "
@@ -1218,7 +1527,8 @@ def phase_scaffold(torch, dev, outdir):
     recs = pl.stage_records
     for name, rec in recs.items():
         print(f"[scaffold] stage {name}: wall {rec['wall_s']:.3f} s, peak device memory "
-              f"{gib(rec['peak_gb'])} GiB, launches {rec['launches']}")
+              f"{gib(rec['peak_gb'])} GiB, host RSS peak {gib(rec['host_peak_gb'])} GiB, "
+              f"launches {rec['launches']}")
     check("paths" not in recs, "scaffold: run_full ran the paths stage on a patched outdir")
     for name in ("count", "graph", "patch", "supergraph", "scaffold"):
         check(sum(recs[name]["launches"].values()) == 0,
@@ -2187,8 +2497,10 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
     with tempfile.TemporaryDirectory() as d:
         n_fresh = timed("cli", phase_cli, torch, d)
     with tempfile.TemporaryDirectory() as d:
-        timed("full", phase_slice, torch, rs_full, "full", d)
-    del rs_full
+        bg_full = timed("full", phase_slice, torch, rs_full, "full", d)[3]
+    torch.cuda.empty_cache()
+    mesh_launches = timed("mesh", phase_mesh, torch, rs_full, bg_full, dev, smi, kres)
+    del rs_full, bg_full
     torch.cuda.empty_cache()
     # needs no genome: runs while the writer simulates it
     timed("scale", phase_scale_merge, torch, dev, **SCALE)
@@ -2199,6 +2511,9 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
         "fastq run", phase_fastq_run, torch, dev, d, writer)
     torch.cuda.empty_cache()
     timed("supergraph glue", phase_glue, torch, dev, sg, rs_genome, f"{d}/asm", kres)
+    torch.cuda.empty_cache()
+    mesh_glue_launches = timed("mesh glue", phase_mesh_glue, torch, dev, sg, rs_genome,
+                               f"{d}/asm", smi)
     torch.cuda.empty_cache()
     timed("resume", phase_resume, torch, rs_genome, d, sg)
     torch.cuda.empty_cache()
@@ -2234,6 +2549,8 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
     timed("merge", phase_merge, torch, crec["raw_rows"])
     torch.cuda.empty_cache()
     timed("graph sort", phase_graph_sort, torch, table.n_valid)
+    del table
+    timed("bench", phase_bench, torch)
 
     timed("evaluate wait", report_evaluate, evaluate)
 
@@ -2248,7 +2565,8 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
              library_ms=r.get("library_ms"), mixed_launches=launches_mixed[name],
              patch_launches=patch_rec.get("rebuild_launches", {}).get(name, 0),
-             supergraph_launches=sg_launches[name],
+             supergraph_launches=sg_launches[name], mesh_launches=mesh_launches[name],
+             mesh_glue_launches=mesh_glue_launches.get(name, 0),
              **{k: v for k, v in r.items() if k not in COMMON_KEYS})
         for name, r in kres.items()
     ]}))

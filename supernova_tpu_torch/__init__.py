@@ -18,7 +18,9 @@ The command line and the pipeline runtime:
   __main__.py, cli.py  the reference's subcommands (run, simulate, evaluate,
                        diagnose, mkoutput, stats, sitecheck, bcmat, tarmri,
                        demux, mkfastq, import-ref, export-ref, readcount,
-                       sam, readqa, graph-fasta, graph-stats, scaf-graph)
+                       sam, readqa, graph-fasta, graph-stats, scaf-graph,
+                       bench) and the multi-host join from the environment
+  bench.py             the benchmark: count throughput, reads aligned/s
   pipeline/run.py      Pipeline: run() (raw FASTA), run_full() (every
                        output), each stage with resume; run_full's stages
                        through the orchestrator
@@ -44,6 +46,10 @@ The device path:
   dbg/build.py, dbg/graph.py  unipath graph build; BaseGraph (graph.npz)
   align/pather.py      fused and general pathers, blocked, OOM retry
   parallel/device_nucleate.py  the supergraph's closure glue on the device
+  parallel/mesh.py, parallel/dist.py  a mesh of shards (one torch device
+                       each) and its collectives; the multi-process fleet
+  parallel/sharded_{count,build,path,nucleate}.py  count, graph build,
+                       pather and closure glue sharded over the mesh
   asm/patch.py, asm/nucleate.py, asm/supergraph.py, asm/misassembly.py,
   asm/het.py           host copies apart from their device seams
   convert.py           numpy <-> tensor bridges to the reference's outputs

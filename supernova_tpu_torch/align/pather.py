@@ -176,22 +176,18 @@ def path_reads_fused_impl(kmer_words: W3, node_edge, node_pos, from_v, to_v, edg
     )
 
 
-def path_reads_impl(kmer_words: W3, node_edge, node_pos, from_v, to_v, edge_kmers,
-                    codes_ext, read_offsets, pos_read, rlen_pos, max_path: int = MAX_PATH,
-                    uniform_rl: int | None = None) -> ReadPaths:
-    """The general pather (per-position inputs of kcount.prepare_reads, any
-    read lengths): word extraction (K1 on the card), one merge-join against
-    the dictionary (K4), then slotting and seed-chain validation at hit
-    scale.  uniform_rl cuts the last K-1 positions of each read block first
-    (the reference's tail-cut branch).  Output rows: rp =
-    len(read_offsets) - 1.
+def general_queries(codes_ext, read_offsets, pos_read, rlen_pos, uniform_rl: int | None = None):
+    """The general pather's dictionary queries: every position's canonical
+    kmer (K1 on the card), its flip, whether it lies past its read's end,
+    and `locate`, which maps a query row to (read, position in read).
+    uniform_rl cuts the last K-1 positions of each read block first (the
+    reference's tail-cut branch).
 
     The position in the read is p - read_offsets[pos_read], one gather: it
     equals the reference's cummax from each read's first position because
     pos_read is non-decreasing and read_offsets[r] is read r's first
     position (empty reads and the padding read n_reads included)."""
     nb = pos_read.shape[0]
-    rp = read_offsets.shape[0] - 1
     canon, flipped = kc.canonicalize(kc.sliding_words(codes_ext, nb))
     if uniform_rl is not None:
         cols = uniform_rl - K + 1
@@ -204,12 +200,28 @@ def path_reads_impl(kmer_words: W3, node_edge, node_pos, from_v, to_v, edge_kmer
         pir = torch.arange(nb, device=pos_read.device) - torch.index_select(
             read_offsets, 0, pos_read)
     invalid = pir + K > rlen_pos  # beyond the read (padding reads: length 0)
+    return canon, flipped, invalid, lambda cq: (pos_read[cq].long(), pir[cq])
+
+
+def place_hits(hit, edge, epos, locate, rp: int, max_path: int, from_v, to_v,
+               edge_kmers) -> ReadPaths:
+    """The general pather after its dictionary lookup: slotting and
+    seed-chain validation at hit scale."""
+    return _compact_and_place(hit & (edge >= 0), edge, epos, locate, rp, max_path,
+                              from_v, to_v, edge_kmers)
+
+
+def path_reads_impl(kmer_words: W3, node_edge, node_pos, from_v, to_v, edge_kmers,
+                    codes_ext, read_offsets, pos_read, rlen_pos, max_path: int = MAX_PATH,
+                    uniform_rl: int | None = None) -> ReadPaths:
+    """The general pather (per-position inputs of kcount.prepare_reads, any
+    read lengths): general_queries, one merge-join against the dictionary
+    (K4), then place_hits.  Output rows: rp = len(read_offsets) - 1."""
+    canon, flipped, invalid, locate = general_queries(codes_ext, read_offsets, pos_read,
+                                                      rlen_pos, uniform_rl)
     hit, edge, epos = _join(kmer_words, node_edge, node_pos, canon, flipped, invalid)
-    hit &= edge >= 0
-    return _compact_and_place(
-        hit, edge, epos, lambda cq: (pos_read[cq].long(), pir[cq]), rp, max_path,
-        from_v, to_v, edge_kmers,
-    )
+    return place_hits(hit, edge, epos, locate, read_offsets.shape[0] - 1, max_path,
+                      from_v, to_v, edge_kmers)
 
 
 def path_reads_packed(kmer_words: W3, node_edge, node_pos, from_v, to_v, edge_kmers,

@@ -4,8 +4,9 @@ The port's own copy of supernova_tpu/asm/nucleate.py, kept equal to it by
 tests/test_torch_hostcopies.py, apart from nucleate_graph's gate: the
 device glue (parallel/device_nucleate.py) runs for plain-mode closure
 sets of more than DEVICE_GLUE_MIN_POSITIONS positions when `device` is
-CUDA; there is no mesh branch; the route taken goes into `info`.  The
-port imports nothing of the JAX package.
+CUDA, and the mesh glue (parallel/sharded_nucleate.py) when a mesh of more
+than one shard is given, as the reference's; the route taken goes into
+`info`.  The port imports nothing of the JAX package.
 
 Reference behavior (10X/mergers/ClosuresToGraph.cc:151-290 GetMatches +
 NucleateGraph.h:6-35 + Vectorify):
@@ -175,6 +176,10 @@ MIN_OVER_FLOOR_BASES = 100  # adaptive gate lower bound
 # the last nucleate_graph call — used by core-equivalence investigations
 _LAST_GATE: int | None = None
 _LAST_CANDIDATES: list = []
+# pod-scale memory honesty: range-shard the flat closure values across the
+# mesh (extension reads become distributed gathers) instead of replicating
+# them per device.  Addin: asm.nucleate.VALUE_SHARD=1.
+VALUE_SHARD = False
 # closure positions above which the device glue runs (the reference's gate,
 # supernova_tpu/asm/nucleate.py:253)
 DEVICE_GLUE_MIN_POSITIONS = 200_000
@@ -191,6 +196,7 @@ def nucleate_graph(
     device=None,
     info: dict | None = None,
     glue_budgets: tuple | None = None,
+    mesh=None,
 ):
     """Closures -> SuperGraph D by gluing (ClosuresToGraph analogue).
 
@@ -213,8 +219,11 @@ def nucleate_graph(
     The device glue sizes its expansions exactly unless `glue_budgets`
     gives its (candidate, long-pair, union-pair) row budgets; when one of
     those clips real work the host core runs instead (the same partition),
-    as the reference's does.  `info`, when
-    given, receives glue_route ("device", "device_overflow" or "host"),
+    as the reference's does.  A `mesh` of more than one shard runs the mesh
+    glue first (value-sharded when VALUE_SHARD), for plain-mode closures,
+    as the reference's; its partition is taken when nothing overflowed.
+    `info`, when given, receives glue_route ("mesh", "device",
+    "device_overflow" or "host"),
     glue_overflow (the device glue's candidate, long-pair and union-pair
     overflow counts; zeros off the device route) and glue_positions (the
     sanitized closures' positions)."""
@@ -277,6 +286,19 @@ def nucleate_graph(
             and int(lens.sum()) > DEVICE_GLUE_MIN_POSITIONS
         )
     route, overflow = "host", (0, 0, 0)
+    if mesh is not None and plain_mode and mesh.size > 1:
+        # mesh-sharded glue (parallel/sharded_nucleate.py): identical
+        # partition, distributed over the shards
+        from ..parallel.sharded_nucleate import glue_closures_sharded
+
+        par, ovf = glue_closures_sharded(
+            mesh, bg, cls, int(min_over_bases), adaptive, value_shard=VALUE_SHARD,
+        )
+        if ovf == 0:
+            if info is not None:
+                info.update(glue_route="mesh", glue_overflow=overflow,
+                            glue_positions=int(lens.sum()))
+            return _quotient(bg, cls, cinv, lens, cstart, par, int(cstart[-1]))
     if device_glue and plain_mode:
         if device is None:
             raise ValueError("device_glue=True needs the device it runs on")

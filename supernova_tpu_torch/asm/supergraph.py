@@ -352,19 +352,20 @@ def build_supergraph(bg, keep: np.ndarray | None = None) -> SuperGraph:
 
 
 def closures_to_graph(bg, closures, min_over_bases: int | None = None,
-                      device=None, info: dict | None = None) -> SuperGraph:
+                      device=None, info: dict | None = None, mesh=None) -> SuperGraph:
     """ClosuresToGraph analogue (10X/mergers/ClosuresToGraph.h): glue
     closure paths into the supergraph D by position-level nucleation —
     see asm/nucleate.py for the full construction (GetMatches overlap
     rules + boundary union-find + Vectorify), which duplicates repeat
     base edges into their distinct closure contexts.  `device` is where
-    the closure glue may run (nucleate_graph's gate); `info` receives the
-    glue's route, overflow counts and closure positions."""
+    the closure glue may run (nucleate_graph's gate), `mesh` the shards of
+    the mesh glue; `info` receives the glue's route, overflow counts and
+    closure positions."""
     from .nucleate import nucleate_graph
 
     # min_over_bases=None -> adaptive gate (see nucleate_graph docstring)
     return nucleate_graph(
-        bg, closures, min_over_bases=min_over_bases, device=device, info=info
+        bg, closures, min_over_bases=min_over_bases, device=device, info=info, mesh=mesh
     )
 
 

@@ -18,7 +18,11 @@ differences:
   * --localcores sets OMP_NUM_THREADS and torch.set_num_threads.
   * mkoutput refuses an assembly_state.pkl written by the JAX package
     (its classes name supernova_tpu modules), and imports none of it.
-  * No `bench` subcommand and no multi-host join from the environment.
+  * `bench` runs the port's benchmark (supernova_tpu_torch/bench.py) on
+    --device, not the repo's bench.py.
+  * The multi-host join from the environment (SUPERNOVA_NUM_PROCESSES > 1,
+    parallel/dist.py) joins a torch.distributed group after the arguments
+    are parsed, with the backend of --device (gloo for cpu, NCCL for cuda).
 """
 from __future__ import annotations
 
@@ -683,6 +687,12 @@ def cmd_scaf_graph(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from .bench import main as bench_main
+
+    return bench_main(args.device)
+
+
 def main(argv=None) -> int:
     # stage progress (STAGE x: begin/done lines) goes to stderr — the
     # reference's Date()-stamped cout tracing (SURVEY §5.1)
@@ -892,14 +902,30 @@ def main(argv=None) -> int:
     sg.add_argument("--max-bcs", type=int, default=5000)
     sg.set_defaults(fn=cmd_scaf_graph)
 
+    b = sub.add_parser("bench", help="run the port's count and pather benchmark")
+    b.add_argument("--device", default=argparse.SUPPRESS, help="as the top-level --device")
+    b.set_defaults(fn=cmd_bench)
+
     args = ap.parse_args(argv)
+    # multi-host fleet: join before any device work when the SUPERNOVA_*
+    # process environment is set (the mrp/SGE cluster-mode analogue, one
+    # process per host, collectives over the ("host","chip") mesh)
+    import os
+
+    if int(os.environ.get("SUPERNOVA_NUM_PROCESSES", "1")) > 1:
+        import torch.distributed as dist
+
+        from .parallel.dist import init_from_env, local_shards
+
+        init_from_env(args.device)
+        logging.getLogger("supernova_tpu_torch").info(
+            "multi-host: process %d/%d, %d local shards", dist.get_rank(),
+            dist.get_world_size(), local_shards(args.device))
     if getattr(args, "localcores", None):
         # host-thread cap (the reference's --localcores): torch's intra-op
         # pool now, OpenMP pools started later; BLAS pools bound at numpy
         # import may keep their size — set OMP_NUM_THREADS in the shell
         # for a hard cap.
-        import os
-
         import torch
 
         if os.environ.get("OMP_NUM_THREADS") not in (

@@ -101,6 +101,11 @@ from .orchestrate import Orchestrator
 
 log = logging.getLogger("supernova_tpu_torch")
 
+# Dictionary rows above which the mesh pather hash-shards the kmer
+# dictionary across the shards instead of replicating it (the reference's
+# supernova_tpu/pipeline/run.py:33-38).  Addin: pipeline.run.PATH_VS_DICT_ROWS.
+PATH_VS_DICT_ROWS = 64_000_000
+
 # Flat base count above which the ReadSet re-homes onto disk memmaps
 # (reads.lazy/), as the reference's (supernova_tpu/pipeline/run.py:40-43).
 LAZY_READS_MIN_BASES = 2_000_000_000
@@ -111,17 +116,45 @@ FASTA_FILES = {"raw": "assembly.raw.fasta.gz", "megabubbles": "assembly.megabubb
                "pseudohap2": "assembly.pseudohap2.fasta.gz", "efasta": "assembly.efasta.gz"}
 
 
+def _fleet_world() -> int:
+    """Processes in the joined fleet (1 when none was joined)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 class Pipeline:
     def __init__(self, outdir: str | Path, device: str | torch.device, resume: bool = False,
-                 downsample: dict | None = None, auto_downsample: bool = True):
+                 downsample: dict | None = None, auto_downsample: bool = True,
+                 multi_device: bool | tuple | None = None):
         """device: where the count, build, pather and patch rebuild run (no
         default: "cuda" on the card, "cpu" for the plain twins).
         resume, downsample, auto_downsample: the reference's (run.py:47-98).
         resume reloads each stage's checkpoint; downsample is
         {"target_reads": N} or {"gigabases": G}; auto_downsample subsamples
         to 56x and recounts when the spectrum's coverage estimate exceeds
-        90x."""
+        90x.
+
+        multi_device, the reference's (run.py:72-92): None shards the count,
+        build, pather and closure glue over every visible card when there
+        is more than one; True does so on the CPU too (over the reference
+        test mesh's 8 shards); False never; a (hosts, chips) tuple selects
+        the 2-D mesh with the hierarchical count exchange, its hosts*chips
+        shards on the cards in turn (several on one card where there are
+        fewer cards).  SUPERNOVA_TPU_TOPOLOGY=HxC sets the tuple; a joined
+        fleet (parallel/dist.py) sets (processes, shards per process)."""
         self.device = resolve_device(device)
+        if multi_device is None:
+            topo = os.environ.get("SUPERNOVA_TPU_TOPOLOGY")
+            if topo:
+                h, c = topo.lower().split("x")
+                multi_device = (int(h), int(c))
+            elif _fleet_world() > 1:
+                from ..parallel.dist import local_shards
+
+                multi_device = (_fleet_world(), local_shards(self.device))
+        self.multi_device = multi_device
+        self._shard_tables = None  # (mesh, per-shard tables) for the sharded build
         self.outdir = Path(outdir)
         self.outdir.mkdir(parents=True, exist_ok=True)
         self.stats = StatLogger.load(self.outdir / "all_stats.json")
@@ -348,9 +381,19 @@ class Pipeline:
                 W3(w[:, 0], w[:, 1], w[:, 2]), z["count"], z["nbc"], z["left_mask"],
                 z["right_mask"], z["n_valid"]), self.device)
         spill_dir = self.outdir / "count_spill"
-        table = dbuild.trim_table(kcount.count_readset(
-            rs, self.device, info=self.stage_records.setdefault("count", {}),
-            spill_dir=spill_dir))
+        ndev = self._mesh_ndev()
+        if ndev and int(rs.offsets[-1]) > kcount.BLOCK_POSITIONS:
+            # the reference shards only a one-block readset (sharded +
+            # blocked is future work there too)
+            log.info("count: readset exceeds one block; using the blocked path")
+            ndev = 0
+        if ndev:
+            table = self._count_sharded(rs, ndev)
+        else:
+            table = kcount.count_readset(
+                rs, self.device, info=self.stage_records.setdefault("count", {}),
+                spill_dir=spill_dir)
+        table = dbuild.trim_table(table)
         host = convert.table_to_numpy(table)
         n = host.n_valid
         self.stats.log("kmers_distinct", n, "distinct filtered 48-mers", stage="count")
@@ -372,6 +415,88 @@ class Pipeline:
         shutil.rmtree(spill_dir, ignore_errors=True)
         return table
 
+    def _glue_mesh(self):
+        """The mesh of the supergraph closure glue in multi-device mode
+        (parallel/sharded_nucleate.py), else None."""
+        ndev = self._process_ndev()
+        if not ndev:
+            return None
+        from ..parallel.mesh import make_mesh
+
+        return make_mesh(ndev, self.device)
+
+    def _mesh_ndev(self) -> int:
+        """Shards to run count/build/paths/glue over (0 = single device).
+        The reference's rule, with ">1 local chip on a TPU backend" read as
+        ">1 visible card with a CUDA device", so a one-card run stays
+        single-device."""
+        if isinstance(self.multi_device, tuple):
+            h, c = self.multi_device
+            return h * c if h * c > 1 else 0
+        cards = torch.cuda.device_count() if self.device.type == "cuda" else 0
+        if self.multi_device is None:
+            return cards if cards > 1 else 0
+        n = cards if self.device.type == "cuda" else 8
+        return n if (self.multi_device and n > 1) else 0
+
+    def _process_ndev(self) -> int:
+        """Shards the pather and the closure glue run over: _mesh_ndev(),
+        but in a joined fleet only this process's own shards (0 for one).
+        The reference's mesh spans the fleet there; here only the count
+        crosses processes, and every process paths and glues the whole
+        readset on its own shards."""
+        ndev = self._mesh_ndev()
+        if ndev and _fleet_world() > 1:
+            from ..parallel.dist import local_shards
+
+            chips = local_shards(self.device)
+            return chips if chips > 1 else 0
+        return ndev
+
+    def _count_sharded(self, rs: ReadSet, ndev: int):
+        """Mesh count (parallel/sharded_count.py): reads data-parallel, kmer
+        space hash-sharded; keeps the per-shard tables for the sharded
+        build.  On a capacity overflow the reference recounts on one device;
+        so does this, and the count stage's record says which route ran
+        (count_route "mesh" or "mesh_overflow", count_overflow)."""
+        from ..parallel import sharded_count as psc
+        from ..parallel.mesh import flat, make_mesh, make_mesh2
+
+        rec = self.stage_records.setdefault("count", {})
+        fleet = _fleet_world() > 1
+        if isinstance(self.multi_device, tuple):
+            # 2-D (host, chip) topology: the hierarchical exchange; the
+            # shard tables keep working on the flat mesh of the same shards
+            if fleet:
+                from ..parallel.dist import fleet_mesh
+
+                mesh2 = fleet_mesh(self.device)
+            else:
+                mesh2 = make_mesh2(*self.multi_device, device=self.device)
+            mesh = flat(mesh2)
+            inputs, nbl = psc.split_readset(rs, mesh2)
+            tables, ovf = psc.sharded_count_hier(mesh2, inputs, capacity=4 * nbl)
+            total = ovf[0]  # every shard holds the mesh's total
+        else:
+            mesh = make_mesh(ndev, self.device)
+            inputs, nbl = psc.split_readset(rs, mesh)
+            tables, ovf = psc.sharded_count(mesh, inputs, capacity=4 * nbl)
+            total = sum(ovf)
+        del inputs
+        rec.update(count_overflow=int(total), n_shards=ndev)
+        if total > 0:
+            log.warning("sharded count overflow (%d rows); single-device recount", total)
+            rec["count_route"] = "mesh_overflow"
+            self._shard_tables = None
+            return kcount.count_readset(rs, self.device, info=rec)
+        rec["count_route"] = "mesh"
+        # a fleet's shard tables live in several processes: its build runs
+        # on the merged table, on one device per process
+        self._shard_tables = None if fleet else (mesh, tables)
+        self.stats.log("n_shards", ndev, "count/build mesh devices", stage="count")
+        merged = psc.merge_shard_tables(tables, self.device)
+        return kcount.recompute_adjacencies(dbuild.trim_table(merged))
+
     def _count_with_cov_guard(self, rs: ReadSet):
         """Count, estimate coverage from the spectrum, and (auto mode)
         downsample + recount past the >90x alarm (reference run.py:396-436)
@@ -392,8 +517,10 @@ class Pipeline:
                                "auto downsample to 56x (coverage alarm >90x)", stage="count")
                 rs = subsample_pairs(rs, frac)
                 (self.outdir / "kmers.npz").unlink(missing_ok=True)
-                # free the full-coverage table before the recount
+                # free the full-coverage table (and any shard tables) before
+                # the recount
                 table = None
+                self._shard_tables = None
                 gc.collect()
                 if self.device.type == "cuda":
                     torch.cuda.empty_cache()
@@ -404,7 +531,15 @@ class Pipeline:
         ck = self.outdir / "graph.npz"
         if self.resume and ck.exists():
             return dgraph.BaseGraph.load(ck)
-        bg = dgraph.from_device(dbuild.build_graph(table), table)
+        if self._shard_tables is not None:
+            # distributed unipath build over the hash-sharded tables
+            from ..parallel.sharded_build import sharded_build_graph
+
+            mesh, tables = self._shard_tables
+            bg = sharded_build_graph(mesh, tables, self.device)
+            self._shard_tables = None
+        else:
+            bg = dgraph.from_device(dbuild.build_graph(table), table)
         bg.save(ck)
         lens = bg.edges.lengths()
         canonical = np.arange(bg.n_edges) <= bg.inv  # one per rc pair
@@ -433,7 +568,13 @@ class Pipeline:
                 self._write_ebcx(edges, plen, rs, bg)
                 return rp
         rec = self.stage_records.setdefault("paths", {})
-        rp = pather.path_readset(bg, rs, self.device, info=rec)
+        ndev = self._process_ndev()
+        if ndev and int(rs.offsets[-1]) > kcount.BLOCK_POSITIONS:
+            ndev = 0  # the blocked single-device pather, as the reference's
+        if ndev:
+            rp = self._path_sharded(bg, rs, ndev)
+        else:
+            rp = pather.path_readset(bg, rs, self.device, info=rec)
         n = rs.n_reads
         edges, plen, offset = (x[:n] for x in convert.readpaths_to_numpy(rp)[:3])
         t0 = time.perf_counter()
@@ -454,6 +595,32 @@ class Pipeline:
         self.stats.log("placed_perc", placed * 100, "% reads pathed", stage="paths")
         self._write_ebcx(edges, plen, rs, bg)
         return rp
+
+    def _path_sharded(self, bg: dgraph.BaseGraph, rs: ReadSet, ndev: int) -> pather.ReadPaths:
+        """Data-parallel pathing over the mesh (parallel/sharded_path.py),
+        per read equal to the single-device pather.  The dictionary is
+        replicated on every shard below PATH_VS_DICT_ROWS rows and
+        hash-sharded above (no shard holds all of it; lookups go to the
+        owner shard)."""
+        from ..parallel import sharded_path as psp
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(ndev, self.device)
+        inputs, blocks = psp.split_for_pathing(rs, mesh)
+        da = bg.device_arrays(mesh.devices[0])
+        value_shard = int(bg.kmer_words.shape[0]) > PATH_VS_DICT_ROWS
+        if value_shard:
+            shards = psp.shard_dictionary(mesh, da["words"], da["node_edge"], da["node_pos"])
+            nbl = max(int(i["pos_read"].shape[0]) for i in inputs)
+            parts = psp.sharded_path_vs(mesh, shards, da["from_v"], da["to_v"], da["edge_kmers"],
+                                        inputs, capacity=2 * nbl)
+        else:
+            parts = psp.sharded_path(mesh, da["words"], da["node_edge"], da["node_pos"],
+                                     da["from_v"], da["to_v"], da["edge_kmers"], inputs)
+        self.stats.log("n_shards_path", ndev, "pathing mesh devices", stage="paths")
+        self.stats.log("path_dict_sharded", int(value_shard),
+                       "1 = kmer dictionary value-sharded across the mesh", stage="paths")
+        return psp.gather_paths(parts, blocks)
 
     def _write_ebcx(self, edges, plen, rs: ReadSet, bg: dgraph.BaseGraph):
         """ebcx.npz: the barcodes of the reads on each edge, and the reads'
@@ -580,7 +747,8 @@ class Pipeline:
         if cl:
             # faithful MC construction: glue closures into D
             glue: dict = {}
-            D = asg.closures_to_graph(bg, cl, device=self.device, info=glue)
+            D = asg.closures_to_graph(bg, cl, device=self.device, info=glue,
+                                      mesh=self._glue_mesh())
             log_sg("supergraph_mode", "closures")
             if glue:
                 self.stage_records.setdefault("supergraph", {}).update(glue)

@@ -208,7 +208,8 @@ def test_supergraph_nucleate_misassembly_are_the_original(mod, ported):
     consts = {"supergraph": (), "misassembly": (
         "MIN_SPAN_BC", "BC_FLANK", "BC_IGNORE", "BC_REQUIRE", "BC_MIN", "BC_MAX_CELL",
         "ESCALATION_TIERS"), "nucleate": ("MIN_OVER_BASES", "_MAX_LONG_PARTNERS",
-                                          "LOOK_MERGE_BASES", "LOOK", "MIN_OVER_FLOOR_BASES")}
+                                          "LOOK_MERGE_BASES", "LOOK", "MIN_OVER_FLOOR_BASES",
+                                          "VALUE_SHARD")}
     for name in consts[mod]:
         assert getattr(ref, name) == getattr(port, name), name
 

@@ -176,3 +176,22 @@ def test_run_full_refuses_an_unknown_flavor_before_any_work(tmp_path):
     with pytest.raises(ValueError, match="unknown flavor"):
         pl.run_full(None, flavors=("raw", "fastb"))
     assert not (tmp_path / "reads.npz").exists()
+
+
+def test_stat_keys_match_reference(runs):
+    """Fault C6: run_full's all_stats.json has the reference's stat keys,
+    its stage timer's too (etime_<stage>_h, mem_peak_host_<stage>_gb),
+    values aside; off CUDA the port logs no mem_peak_<stage>_gb, whose
+    reference value on the CPU is the bytes of live JAX arrays.  The port's
+    own additions are the closure glue's route stats."""
+    from tests.test_torch_supergraph import GLUE_KEYS
+
+    _, (ref_out, _, _), (port_out, port, _) = runs
+    want = set(json.loads((ref_out / "all_stats.json").read_text()))
+    got = set(json.loads((port_out / "all_stats.json").read_text()))
+    device_peaks = {k for k in want if k.startswith("mem_peak_") and
+                    not k.startswith("mem_peak_host_")}
+    assert device_peaks and got == (want - device_peaks) | set(GLUE_KEYS)
+    for name, rec in port.stage_records.items():
+        assert f"mem_peak_host_{name}_gb" in got and f"etime_{name}_h" in got
+        assert rec["host_peak_gb"] > 0 and rec["peak_gb"] is None

@@ -185,8 +185,9 @@ def test_port_never_imports_jax():
     """Importing the port, running a count, single-block and blocked, and
     then 10x FASTQs through preflight, ingest, Pipeline.run, stage_patch
     and stage_supergraph, the closure glue on the device route, run_full
-    (scaffold phases, phasing, the het DP, every FASTA flavor), and the
-    command line's simulate and `run --device cpu` leaves jax and every
+    (scaffold phases, phasing, the het DP, every FASTA flavor), a mesh
+    count and a mesh path on CPU shards, and the command line's simulate
+    and `run --device cpu` leaves jax and every
     supernova_tpu module out of sys.modules (needs its own process: conftest
     imports jax and the JAX package); nor does `python -m
     supernova_tpu_torch --help` import one (-X importtime lists every
@@ -246,6 +247,19 @@ with tempfile.TemporaryDirectory() as d:
     D, lines, scaffolds, phasings, outs = Pipeline(d + "/full", device="cpu").run_full(rs)
     assert set(outs) == {"raw", "megabubbles", "pseudohap", "pseudohap2"}
     assert all(p.exists() for p in outs.values()) and scaffolds and phasings
+    from supernova_tpu_torch.parallel import mesh as pmesh, sharded_count as psc
+    from supernova_tpu_torch.parallel import sharded_path as psp
+    m = pmesh.make_mesh2(2, 2, device="cpu")
+    inputs, nbl = psc.split_readset(rs, m)
+    tables, ovf = psc.sharded_count_hier(m, inputs, capacity=4 * nbl)
+    assert sum(ovf) == 0 and sum(int(t.n_valid) for t in tables) > 0
+    m = pmesh.make_mesh(4, "cpu")
+    inputs, blocks = psp.split_for_pathing(rs, m)
+    da = bg.device_arrays("cpu")
+    rp4 = psp.gather_paths(psp.sharded_path(m, da["words"], da["node_edge"], da["node_pos"],
+                                            da["from_v"], da["to_v"], da["edge_kmers"], inputs),
+                           blocks)
+    assert rp4.path_len.shape[0] == rs.n_reads and int((rp4.path_len > 0).sum()) > 0
     from supernova_tpu_torch import cli
     with contextlib.redirect_stdout(io.StringIO()):
         assert cli.main(["simulate", "--out", d + "/sim", "--genome-size", "6000", "--barcodes",

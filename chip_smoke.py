@@ -92,7 +92,27 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      share of pseudohap contigs (split at N, > 400 bp) that are exact
      substrings of a simulated haplotype strand; `evaluate` of the
      pseudohap against the genome's haplotypes starts in a background
-     process, read before 12 ([evaluate]: anchored_frac > 0.9).  [patch
+     process, read before 12 ([evaluate]: anchored_frac > 0.9).  Then,
+     on that run's scaffold stage (MESH_SHARDS virtual shards on cuda:0):
+     [mesh links]: the legacy scaffolder's incidence rows (canonical lines
+     with barcodes and their barcode sets, as the stage built them and
+     passed them to link_triples_np): bc_link_triples on the card and
+     sharded_bc_links over the shards at cap 16 and at the longest barcode
+     run, each equal to link_triples_np(max_per_bc=cap), the latter to the
+     stage's own call; the dry run's scaffold-join round on the shards; K4
+     and K2 launched (counters reset just before); K4 at the (bc, item)
+     and pair sorts and K2 at the run-total compaction against their twins.
+     [mesh phase]: every bubble of every scaffolded line, one vote row per
+     (read, D-edge) placement on an arm edge, sharded_vote_matrix over the
+     shards: each line's _support_matrix in its rows and columns, and
+     phase_line from the mesh's counts equal to the host's on every line;
+     the dry run's phasing round.  [fmindex]: FMIndex.from_edges of the
+     patched base graph on the card, its suffix array equal to the same
+     doubling on K4's twin, bwt/less/occ_ck equal to those derived on the
+     host; count_batch_device on FM_QUERIES patterns of 16-100 bases cut
+     from the reads, equal to CPU tensors, FMIndex.count and (locate) a
+     brute-force search on subsamples; queries/s; K4 at the last doubling
+     round's sort against its twin.  [patch
      kernels]: K1-K4 against their twins at the rebuild count's shapes
      (one strand of every edge plus the closures, unbarcoded, min_freq 1,
      min_read_len K).  The genome's later phases use this FASTQ-ingested
@@ -166,7 +186,9 @@ the kernels (launches from the main path, the fastq run's run(),
 stage_patch and stage_supergraph; patch_launches from its rebuild;
 supergraph_launches from stage_supergraph; mixed_launches from the mixed
 genome's run(); mesh_launches from [mesh], mesh_glue_launches from [mesh
-glue]; mixed_* times from 8, patch_*, glue and mesh times from 6 and [mesh]),
+glue], links_launches from [mesh links], fmindex_launches from [fmindex];
+mixed_* times from 8, patch_*, glue, links, fmindex and mesh times from 6
+and [mesh]),
 the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 Exits nonzero without a GPU.
 """
@@ -757,6 +779,10 @@ def phase_slice(torch, rs, tag, outdir, min_blocks=None):
 
 
 MESH_SHARDS = 4  # virtual shards, all on cuda:0 on a one-card host
+FM_QUERIES = 1_000_000  # [fmindex]: patterns on the card
+FM_CPU_QUERIES = 10_000  # of them, again on CPU tensors
+FM_HOST_QUERIES = 1_000  # ... through FMIndex.count
+FM_LOCATE = 100  # ... through locate and a brute-force search
 
 
 def mesh_kernels(torch, mesh, inputs, res):
@@ -1485,6 +1511,8 @@ def phase_scaffold(torch, dev, outdir):
     import numpy as np
     from supernova_tpu_torch import cli
     from supernova_tpu_torch.asm import het as ahet
+    from supernova_tpu_torch.asm import links as alinks
+    from supernova_tpu_torch.asm import scaffold as asc
     from supernova_tpu_torch.core import dna
     from supernova_tpu_torch.ops import alignment as al
     from supernova_tpu_torch.ops import kernels
@@ -1492,7 +1520,7 @@ def phase_scaffold(torch, dev, outdir):
     from supernova_tpu_torch.pipeline.run import Pipeline
 
     asm = f"{outdir}/asm"
-    het_pairs, runs, bundle_s = [], [], []
+    het_pairs, runs, bundle_s, scaffolding = [], [], [], []
 
     def align_spy(pairs, device, **kw):
         het_pairs.extend(pairs)
@@ -1500,8 +1528,21 @@ def phase_scaffold(torch, dev, outdir):
 
     def run_full_spy(self, rs, *a, **kw):
         got = run_full(self, rs, *a, **kw)
-        runs.append((self, got))
+        runs.append((self, rs, got))
         return got
+
+    def scaffold_lines_spy(*a, **kw):
+        """The legacy scaffolder's link_triples_np call: its incidence rows
+        (the canonical lines' barcode sets), arguments and triples."""
+        def links_spy(*la, **lkw):
+            scaffolding.append((la, lkw, link_triples_np(*la, **lkw)))
+            return scaffolding[-1][2]
+
+        alinks.link_triples_np = links_spy
+        try:
+            return scaffold_lines(*a, **kw)
+        finally:
+            alinks.link_triples_np = link_triples_np
 
     def bundle_spy(*a, **kw):
         t0 = time.perf_counter()
@@ -1510,7 +1551,9 @@ def phase_scaffold(torch, dev, outdir):
         return path
 
     align_pairs, run_full, make_mri_bundle = ahet.align_pairs, Pipeline.run_full, cli.make_mri_bundle
+    scaffold_lines, link_triples_np = asc.scaffold_lines, alinks.link_triples_np
     ahet.align_pairs, Pipeline.run_full, cli.make_mri_bundle = align_spy, run_full_spy, bundle_spy
+    asc.scaffold_lines = scaffold_lines_spy
     kernels.reset_launch_counts()
     printed = io.StringIO()
     t0 = time.perf_counter()
@@ -1520,9 +1563,10 @@ def phase_scaffold(torch, dev, outdir):
     finally:
         ahet.align_pairs, Pipeline.run_full, cli.make_mri_bundle = (
             align_pairs, run_full, make_mri_bundle)
+        asc.scaffold_lines = scaffold_lines
     wall = time.perf_counter() - t0
     check(rc == 0 and len(runs) == 1, f"scaffold: the CLI's run exited {rc}")
-    pl, (D, lines, scaffolds, phasings, outs) = runs[0]
+    pl, rs, (D, lines, scaffolds, phasings, outs) = runs[0]
     check(pl.device == dev and pl.resume, f"scaffold: the CLI built {pl.device}, {pl.resume}")
     recs = pl.stage_records
     for name, rec in recs.items():
@@ -1598,8 +1642,12 @@ def phase_scaffold(torch, dev, outdir):
     shutil.copy(outs["pseudohap"], ev / "assembly.pseudohap.fasta.gz")
     np.save(ev / "hap_a.npy", g)
     np.save(ev / "hap_b.npy", hb)
-    return Background(port_cmd("evaluate", "--fasta", ev / "assembly.pseudohap.fasta.gz",
-                               "--truth", ev / "hap_a.npy", ev / "hap_b.npy"))
+    job = Background(port_cmd("evaluate", "--fasta", ev / "assembly.pseudohap.fasta.gz",
+                              "--truth", ev / "hap_a.npy", ev / "hap_b.npy"))
+    check(len(scaffolding) == 1,
+          "scaffold: the stage did not take the legacy scaffolder's one link_triples_np call")
+    return job, dict(D=D, lines=lines, scaffolds=scaffolds, dpaths=pl._dpaths, dlen=pl._dlen,
+                     bc=rs.bc, reads=(rs.codes, rs.offsets), scaffolding=scaffolding[0])
 
 
 def report_evaluate(job):
@@ -1614,6 +1662,356 @@ def report_evaluate(job):
           f"misassembly_rate_perc {res['misassembly_rate_perc']}; {job.wall:.3f} s "
           "(a fresh process, beside the phases after [scaffold])")
     check(res["anchored_frac"] > 0.9, f"evaluate: anchored_frac {res['anchored_frac']}")
+
+
+def phase_mesh_links(torch, dev, asm, smi, res):
+    """The genome's barcode links on the card: the incidence rows of the
+    canonical lines with barcodes, as the scaffold stage built them and
+    passed them to link_triples_np (phase_scaffold records the call);
+    bc_link_triples at cap 16 (the reference's
+    default) and at the longest barcode run (nothing dropped), then
+    sharded_bc_links over MESH_SHARDS virtual shards at both caps, each
+    equal to link_triples_np(max_per_bc=cap), and at the longest run to the
+    stage's own call; then the dry run's scaffold-join round on the shards.
+    The launch counters are set to 0 just before these calls and read just
+    after (K4 and K2 must launch).  Then K4 at the (bc, item) and pair
+    sorts and K2 at the run-total compaction against their twins
+    (phase_links_kernels).  Returns the launches."""
+    import numpy as np
+    from supernova_tpu_torch.asm.links import link_triples_np
+    from supernova_tpu_torch.ops import kernels
+    from supernova_tpu_torch.parallel import mesh as pmesh
+    from supernova_tpu_torch.parallel import rounds
+    from supernova_tpu_torch.parallel import sharded_scaffold as pss
+
+    (bcv, item), kw, stage = asm["scaffolding"]
+    check(set(kw) == {"min_shared"}, f"mesh links: the stage called link_triples_np with {kw}")
+    min_shared = kw["min_shared"]
+    longest = int(np.unique(bcv, return_counts=True)[1].max()) if len(bcv) else 0
+    caps = (16, max(longest, 2))
+    want = {cap: link_triples_np(bcv, item, min_shared=min_shared, max_per_bc=cap)
+            for cap in caps}
+    check(all(np.array_equal(a, b) for a, b in zip(want[caps[1]], stage)),
+          "mesh links: link_triples_np at the longest run differs from the stage's call")
+    mesh = pmesh.make_mesh(MESH_SHARDS, dev)
+    shards = pss.split_incidence(bcv, item, MESH_SHARDS)
+    walls, info = {}, {}
+
+    def timed_call(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    kernels.reset_launch_counts()
+    got = {}
+    for cap in caps:
+        o1, o2, tot, nv = timed_call(f"bc_link_triples cap {cap}", lambda: pss.bc_link_triples(
+            bcv, item, cap=cap, min_shared=min_shared, device=dev))
+        got[cap] = (o1.cpu().numpy(), o2.cpu().numpy(), tot.cpu().numpy())
+        info[cap] = {}
+        got[("mesh", cap)] = timed_call(f"sharded_bc_links cap {cap}", lambda: pss.sharded_bc_links(
+            mesh, *shards, cap=cap, min_shared=min_shared, info=info[cap]))
+    rnd = timed_call("scaffold_join_round", lambda: rounds.scaffold_join_round(mesh))
+    launches = kernels.launch_counts()
+    for cap in caps:
+        for key, label in ((cap, "bc_link_triples"), (("mesh", cap), "sharded_bc_links")):
+            check(all(a.dtype == b.dtype and np.array_equal(a, b)
+                      for a, b in zip(got[key], want[cap])),
+                  f"mesh links: {label} at cap {cap} differs from link_triples_np")
+        check(sum(info[cap]["dropped"]) == 0, f"mesh links: rows dropped {info[cap]['dropped']}")
+    check(rnd[0] > rnd[1], f"mesh links: the scaffold-join round joined nothing {rnd}")
+    for name in ("sort", "compact"):
+        check(launches[name] > 0, f"mesh links: {name} was not launched")
+    print(f"[mesh links] {smi}: the genome's scaffold incidence: N {len(np.unique(item))} "
+          f"canonical lines with barcodes, {len(bcv)} incidence rows, "
+          f"{len(np.unique(bcv))} barcodes, longest barcode run {longest}; min_shared "
+          f"{min_shared}")
+    for cap in caps:
+        print(f"[mesh links] cap {cap}: bc_link_triples on the card == sharded_bc_links over "
+              f"{MESH_SHARDS} VIRTUAL shards == link_triples_np(max_per_bc={cap}): "
+              f"{len(want[cap][0])} triples; {info[cap]['pair_rows']} pair rows, "
+              f"{info[cap]['local_rows']} pre-reduced rows exchanged, 0 dropped"
+              + (" (== the scaffold stage's link_triples_np)" if cap == caps[1] else ""))
+    print(f"[mesh links] scaffold_join_round over {MESH_SHARDS} shards: lines {rnd[0]} -> "
+          f"{rnd[1]}; walls (host clock, synchronized): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
+    print(f"[mesh links] launches {launches}")
+    phase_links_kernels(torch, dev, bcv, item, caps[1], res)
+    return launches
+
+
+def phase_links_kernels(torch, dev, bcv, item, cap, res):
+    """K4 at the links' (bc, item) sort and pair sort, K2 at the run-total
+    compaction (with the zero fill, as segments.stable_compact calls it),
+    on the genome's incidence at `cap`, each against its twin; adds
+    links_* entries to `res`."""
+    from supernova_tpu_torch.ops import segments as seg
+    from supernova_tpu_torch.ops.kernels import compact as k2
+    from supernova_tpu_torch.ops.kernels import sort as k4
+    from supernova_tpu_torch.parallel import sharded_scaffold as pss
+
+    bc, it = (torch.from_numpy(x.astype("int64")).to(dev) for x in (bcv, item))
+    keep_keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
+                 "library_shape")
+    r, perm = check_sort(torch, [bc, it], f"{bc.shape[0]} rows x 2 keys (links (bc, item))")
+    res["sort"]["links_bc_item"] = {k: r[k] for k in keep_keys}
+    e1, e2 = pss._pairs_from_sorted(bc[perm], it[perm], cap)
+    r, perm = check_sort(torch, [e1, e2], f"{e1.shape[0]} rows x 2 keys (links pairs)")
+    res["sort"]["links_pairs"] = {k: r[k] for k in keep_keys}
+    k1, k2_, w = e1[perm], e2[perm], torch.ones_like(e1)
+    starts = seg.run_starts(k1, k2_)
+    cs = torch.cumsum(w, 0)
+    cols = (k1, k2_, cs - seg.run_broadcast_from_start(cs - w, starts))
+    keep = seg.run_end_mask(starts)
+    fills = (0,) * 3
+    nv_k, out_k = k2.compact_cuda(keep, *cols, fills=fills)
+    nv_p, out_p = k2.compact_plain(keep, *cols, fills=fills)
+    torch.cuda.synchronize()
+    check(int(nv_k) == int(nv_p) and all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
+          "links: K2 differs from plain at the run-total compaction")
+    rows, nv = keep.shape[0], int(nv_p)
+    r = dict(
+        shape=f"{rows} rows x 3 int64 columns, {nv} kept ({nv / max(rows, 1):.4f}), zero fill "
+              "(links run totals)",
+        max_abs_err=max_abs_err(torch, zip(out_k, out_p)),
+        ms=median_ms(torch, lambda: k2.compact_cuda(keep, *cols, fills=fills)),
+        plain_ms=median_ms(torch, lambda: k2.compact_plain(keep, *cols, fills=fills)),
+        # read the mask and the kept rows, write every row of every column
+        bound_ms=bound_ms(rows + nv * 24 + rows * 24),
+        library_ms=median_ms(torch, lambda: [c[keep] for c in cols]),
+        library_shape="c[keep] for each of the 3 columns")
+    print_kernel("compact (links run totals)", r)
+    res["compact"]["links_run_totals"] = r
+
+
+def vote_rows(D, dpaths, dlen, read_bc, edge_bubble):
+    """One vote row per distinct (read, D-edge) placement of a barcoded read
+    on an arm edge, as asm/phasing.build_edge_bc_counts counts them ->
+    (D-edges, barcodes)."""
+    import numpy as np
+
+    r, mp = dpaths.shape
+    mapped = np.where(np.arange(mp)[None, :] < np.asarray(dlen)[:r, None], dpaths, -1)
+    bc = np.asarray(read_bc)[:r]
+    keep = (mapped >= 0) & (bc[:, None] > 0)
+    reads = np.broadcast_to(np.arange(r)[:, None], (r, mp))[keep]
+    uniq = np.unique(reads.astype(np.int64) * (D.n_edges + 1) + mapped[keep])
+    ur, ud = uniq // (D.n_edges + 1), uniq % (D.n_edges + 1)
+    on_arm = edge_bubble[np.minimum(ud, D.n_edges - 1)] >= 0
+    on_arm &= ud < D.n_edges
+    return ud[on_arm], bc[ur[on_arm]]
+
+
+def phase_mesh_phase(torch, dev, asm, smi):
+    """The genome's phasing votes over MESH_SHARDS virtual shards on the
+    card: every bubble of every scaffolded line (phase_line's bubbles; a
+    bubble whose arms share a D-edge, or share one with an earlier bubble,
+    is left out and counted), one vote row per (read, D-edge) placement on
+    an arm edge (vote_rows), the barcodes remapped to dense molecule
+    indices; sharded_vote_matrix's (B, M) matrix must hold each line's
+    _support_matrix (of the host's build_edge_bc_counts) in its rows and
+    columns, and zeros elsewhere in those rows; phase_line from the mesh's
+    counts must give the host's x on every line with no bubble left out
+    (the dry run's phasing round at genome scale)."""
+    import numpy as np
+    from supernova_tpu_torch.asm import phasing as aph
+    from supernova_tpu_torch.parallel import mesh as pmesh
+    from supernova_tpu_torch.parallel import rounds
+    from supernova_tpu_torch.parallel import sharded_phase as psp
+
+    D, lines = asm["D"], asm["lines"]
+    dinv = np.asarray(D.dinv)
+    line_ids = sorted({int(li) for sc in asm["scaffolds"] for li in sc.line_ids})
+    edge_bubble = np.full(D.n_edges, -1, np.int32)
+    edge_sign = np.zeros(D.n_edges, np.int32)
+    per_line, left_out, whole = {}, 0, []
+    for li in line_ids:
+        kept, n_line = [], 0
+        for i, el in enumerate(lines.lines[li].elements):
+            if len(el) != 2 or np.array_equal(dinv[el.paths[0][::-1]], el.paths[1]):
+                continue  # phase_line's bubbles: no inversion artifacts
+            n_line += 1
+            arms = [np.asarray(el.paths[0]), np.asarray(el.paths[1])]
+            both = np.concatenate(arms)
+            if len(np.unique(both)) < len(both) or (edge_bubble[both] >= 0).any():
+                left_out += 1
+                continue
+            g = sum(len(v) for v in per_line.values()) + len(kept)
+            for arm, sign in zip(arms, (1, -1)):
+                edge_bubble[arm], edge_sign[arm] = g, sign
+            kept.append((g, aph.Bubble(i, [arms[0].copy(), arms[1].copy()])))
+        per_line[li] = kept
+        if len(kept) == n_line:
+            whole.append(li)
+    n_bub = sum(len(v) for v in per_line.values())
+    t0 = time.perf_counter()
+    re, rbc = vote_rows(D, asm["dpaths"], asm["dlen"], asm["bc"], edge_bubble)
+    mols, rb = np.unique(rbc, return_inverse=True)
+    host_counts = aph.build_edge_bc_counts(D, asm["dpaths"], asm["dlen"], asm["bc"])
+    prep_s = time.perf_counter() - t0
+    shards = psp.split_votes(re, rb.astype(np.int32), MESH_SHARDS)
+    mesh = pmesh.make_mesh(MESH_SHARDS, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    S = psp.sharded_vote_matrix(mesh, edge_bubble, edge_sign, *shards, n_bub, len(mols))
+    mesh_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    check(S.shape == (n_bub, len(mols)) and S.any(), f"mesh phase: matrix {S.shape}")
+    t0 = time.perf_counter()
+    for li in line_ids:
+        rows = [g for g, _ in per_line[li]]
+        if not rows:
+            continue
+        s_host, bcs = aph._support_matrix([b for _, b in per_line[li]], host_counts)
+        cols = np.searchsorted(mols, bcs)
+        check(np.array_equal(mols[cols], bcs), f"mesh phase: line {li}: a barcode has no column")
+        check(np.array_equal(S[np.ix_(rows, cols)], s_host),
+              f"mesh phase: line {li}: the mesh matrix differs from _support_matrix")
+        rest = np.ones(len(mols), bool)
+        rest[cols] = False
+        check(not S[np.ix_(rows, rest)].any(), f"mesh phase: line {li}: votes off its molecules")
+    support_s = time.perf_counter() - t0
+    counts_mesh: dict = {}
+    for li in whole:
+        for g, b in per_line[li]:
+            nz = np.flatnonzero(S[g])
+            for m, v in zip(mols[nz].tolist(), S[g, nz].tolist()):
+                counts_mesh.setdefault(int(b.arms[0 if v > 0 else 1][0]), {})[m] = abs(v)
+    t0 = time.perf_counter()
+    x_host = {li: aph.phase_line(lines.lines[li], host_counts, dinv=D.dinv).x for li in whole}
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x_mesh = {li: aph.phase_line(lines.lines[li], counts_mesh, dinv=D.dinv).x for li in whole}
+    phase_s = time.perf_counter() - t0
+    for li in whole:
+        check(np.array_equal(x_host[li], x_mesh[li]),
+              f"mesh phase: line {li} phases differently from the mesh's counts")
+    phased = sum(int((x != 0).sum()) for x in x_host.values())
+    rnd = rounds.phase_round(mesh)
+    check(rnd == (2, 1.0), f"mesh phase: the dry run's phasing round gave {rnd}")
+    print(f"[mesh phase] {smi}: {len(line_ids)} scaffolded lines, B {n_bub} bubbles "
+          f"({left_out} left out: arms sharing a D-edge), M {len(mols)} molecules (dense "
+          f"barcode indices), {len(re)} vote rows over {MESH_SHARDS} VIRTUAL shards; "
+          f"sharded_vote_matrix {mesh_s:.3f} s (host clock, the matrix on the host), peak "
+          f"device memory {peak:.3f} GiB above its inputs; vote rows and host counts "
+          f"{prep_s:.3f} s")
+    print(f"[mesh phase] every line's _support_matrix == the mesh matrix's rows and columns "
+          f"({support_s:.3f} s); phase_line from the mesh's counts == from the host's on "
+          f"{len(whole)} lines ({phased} bubbles phased): host {host_s:.3f} s, mesh counts "
+          f"{phase_s:.3f} s; phase_round over {MESH_SHARDS} shards {rnd}")
+
+
+def phase_fmindex(torch, dev, asm, smi, res):
+    """The FM-index of the genome's patched base graph on the card:
+    FMIndex.from_edges (text length, doubling rounds, K4 launches; the
+    counters set to 0 just before and read after it and the batched
+    search), its suffix array equal to the same doubling on K4's plain twin
+    on the card, its bwt, less and occ_ck equal to those derived from it on
+    the host; count_batch_device on FM_QUERIES patterns of 16-100 bases cut
+    from the genome's reads, equal to the same function on CPU tensors on
+    FM_CPU_QUERIES of them, to FMIndex.count on FM_HOST_QUERIES and, for
+    FM_LOCATE of them, locate equal to a brute-force search of the text.
+    K4 against its twin at the last doubling round's sort.  Returns the
+    launches."""
+    import numpy as np
+    from supernova_tpu_torch.align import fmindex as pfm
+    from supernova_tpu_torch.ops import kernels
+    from supernova_tpu_torch.ops.kernels import sort as k4
+
+    edges = asm["D"].bg.edges
+    sorts = []
+
+    def sort_spy(*keys):
+        sorts[:] = [keys]  # the last round's keys
+        return lex_argsort(*keys)
+
+    lex_argsort = pfm.lex_argsort
+    pfm.lex_argsort = sort_spy
+    info = {}
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fm = pfm.FMIndex.from_edges(edges, device=dev, info=info)
+        build_s = time.perf_counter() - t0
+    finally:
+        pfm.lex_argsort = lex_argsort
+    t, starts = pfm._text(edges)
+    n = len(t)
+    rng = np.random.default_rng(17)
+    codes, offsets = asm["reads"]
+    ri = rng.integers(0, len(offsets) - 1, FM_QUERIES)
+    rlen = offsets[ri + 1] - offsets[ri]
+    lens = np.minimum(rng.integers(16, 101, FM_QUERIES), rlen)
+    at = offsets[ri] + (rng.random(FM_QUERIES) * (rlen - lens + 1)).astype(np.int64)
+    span = np.arange(100)
+    pats = np.where(span < lens[:, None], codes[np.minimum(at[:, None] + span, len(codes) - 1)],
+                    0).astype(np.uint8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fm.count_batch_device(pats, lens, device=dev).cpu().numpy()
+    query_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check(launches["sort"] == info["rounds"], f"fmindex: {launches} for {info['rounds']} rounds")
+
+    pfm.lex_argsort = k4.lex_argsort_plain
+    try:
+        t0 = time.perf_counter()
+        sa_plain = pfm.suffix_array(t, dev)
+        plain_s = time.perf_counter() - t0
+    finally:
+        pfm.lex_argsort = lex_argsort
+    check(np.array_equal(fm.sa, sa_plain), "fmindex: the suffix array differs from K4's twin's")
+    check(np.array_equal(fm.bwt, t[fm.sa - 1]), "fmindex: bwt differs from t[sa - 1]")
+    counts = np.bincount(t, minlength=pfm.SIGMA)
+    check(np.array_equal(fm.less, np.concatenate([[0], np.cumsum(counts)[:-1]])), "fmindex: less")
+    nck = n // pfm.CHECK + 1
+    for a in range(pfm.SIGMA):
+        cum = np.cumsum(fm.bwt == a)[pfm.CHECK - 1 :: pfm.CHECK][: nck - 1]
+        check(fm.occ_ck[0, a] == 0 and np.array_equal(fm.occ_ck[1:, a], cum),
+              f"fmindex: occ_ck of symbol {a}")
+    check(np.array_equal(fm.edge_starts, starts), "fmindex: edge_starts")
+    sub = rng.choice(FM_QUERIES, FM_CPU_QUERIES, replace=False)
+    t0 = time.perf_counter()
+    on_cpu = fm.count_batch_device(pats[sub], lens[sub], device="cpu").numpy()
+    cpu_s = time.perf_counter() - t0
+    check(np.array_equal(got[sub], on_cpu), "fmindex: batched counts on the card differ from CPU")
+    t0 = time.perf_counter()
+    host = [fm.count(pats[q, : lens[q]]) for q in sub[:FM_HOST_QUERIES]]
+    host_s = time.perf_counter() - t0
+    check(np.array_equal(got[sub[:FM_HOST_QUERIES]], host), "fmindex: counts differ from count()")
+    text = t.tobytes()
+    for q in sub[:FM_LOCATE]:
+        p = pats[q, : lens[q]].tobytes()
+        hits, i = [], text.find(p)
+        while i >= 0:
+            e = int(np.searchsorted(starts, i, "right")) - 1
+            hits.append((e, i - int(starts[e])))
+            i = text.find(p, i + 1)
+        check([tuple(x) for x in fm.locate(pats[q, : lens[q]]).tolist()] == sorted(hits)
+              and got[q] == len(hits), f"fmindex: locate of pattern {q} differs from brute force")
+    found = float((got > 0).mean())
+    print(f"[fmindex] {smi}: the genome's patched base graph: {edges.n_rows} edges, text "
+          f"length {n}, {info['rounds']} doubling rounds; FMIndex.from_edges on the card "
+          f"{build_s:.3f} s (host clock, the arrays on the host), the doubling on K4's twin "
+          f"{plain_s:.3f} s: the same suffix array; bwt, less, occ_ck == derived on the host")
+    print(f"[fmindex] count_batch_device: {FM_QUERIES} patterns of {int(lens.min())}-"
+          f"{int(lens.max())} bases from the genome's reads, {query_s:.3f} s on the card "
+          f"({FM_QUERIES / query_s:.1f} queries/s, host clock, counts on the host), "
+          f"{100 * found:.2f}% found; == CPU tensors on {FM_CPU_QUERIES} ({cpu_s:.3f} s), == "
+          f"FMIndex.count on {FM_HOST_QUERIES} ({host_s:.3f} s), locate == brute force on "
+          f"{FM_LOCATE}; launches {launches}")
+    keys = [k.contiguous() for k in sorts[0]]
+    r, _ = check_sort(torch, keys, f"{n} rows x 2 keys (fmindex doubling round {info['rounds']})")
+    res["sort"]["fmindex_doubling"] = {
+        k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
+                          "library_shape")}
+    return launches
 
 
 def phase_small_run_full(torch):
@@ -2517,7 +2915,12 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
     torch.cuda.empty_cache()
     timed("resume", phase_resume, torch, rs_genome, d, sg)
     torch.cuda.empty_cache()
-    evaluate = timed("scaffold", phase_scaffold, torch, dev, d)
+    evaluate, genome_asm = timed("scaffold", phase_scaffold, torch, dev, d)
+    torch.cuda.empty_cache()
+    links_launches = timed("mesh links", phase_mesh_links, torch, dev, genome_asm, smi, kres)
+    timed("mesh phase", phase_mesh_phase, torch, dev, genome_asm, smi)
+    fmindex_launches = timed("fmindex", phase_fmindex, torch, dev, genome_asm, smi, kres)
+    del genome_asm
     torch.cuda.empty_cache()
     timed("patch kernels", phase_kernels_patch, torch, dev, bg, d, kres,
           patch_rec.get("save_s", 0.0))
@@ -2567,6 +2970,7 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
              patch_launches=patch_rec.get("rebuild_launches", {}).get(name, 0),
              supergraph_launches=sg_launches[name], mesh_launches=mesh_launches[name],
              mesh_glue_launches=mesh_glue_launches.get(name, 0),
+             links_launches=links_launches[name], fmindex_launches=fmindex_launches[name],
              **{k: v for k, v in r.items() if k not in COMMON_KEYS})
         for name, r in kres.items()
     ]}))

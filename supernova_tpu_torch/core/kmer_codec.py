@@ -133,6 +133,10 @@ def predecessor_words(w: W3, base) -> W3:
     )
 
 
+def first_base(w: W3):
+    return w.a >> 30
+
+
 def last_base(w: W3):
     return w.c & 3
 

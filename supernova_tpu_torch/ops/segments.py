@@ -24,6 +24,25 @@ def run_starts(*key_arrays):
     return out
 
 
+def segment_ids_from_starts(starts):
+    """starts bool (N,) -> contiguous segment ids (N,) int32 (0-based)."""
+    return torch.cumsum(starts.to(torch.int32), 0, dtype=torch.int32) - 1
+
+
+def seg_sum(values, seg_ids, num_segments: int):
+    """Per-segment sum; empty segments hold 0 (jax.ops.segment_sum)."""
+    out = torch.zeros((num_segments,), dtype=values.dtype, device=values.device)
+    return out.index_add_(0, seg_ids.long(), values)
+
+
+def seg_max(values, seg_ids, num_segments: int):
+    """Per-segment maximum; empty segments hold the dtype's minimum (the
+    identity, as jax.ops.segment_max gives)."""
+    low = -torch.inf if values.dtype.is_floating_point else torch.iinfo(values.dtype).min
+    out = torch.full((num_segments,), low, dtype=values.dtype, device=values.device)
+    return out.scatter_reduce_(0, seg_ids.long(), values, "amax", include_self=True)
+
+
 def seg_min(values, seg_ids, num_segments: int):
     """Per-segment minimum; empty segments hold the dtype's maximum (the
     identity, as jax.ops.segment_min gives)."""
@@ -47,8 +66,10 @@ def run_end_mask(starts):
 
 def stable_compact(valid, *arrays):
     """Stable partition: rows with valid first, order kept; the tail past
-    n_valid is zeroed.  Returns (n_valid 0-d int64 tensor, arrays)."""
-    return kcompact.compact_plain(valid, *arrays)
+    n_valid is zeroed.  Returns (n_valid 0-d int64 tensor, arrays).  A CUDA
+    tensor goes through kernel K2 (csrc/compact.cu), which writes the zero
+    tail itself; a CPU tensor through its plain twin."""
+    return kcompact.compact(valid, *arrays, fills=(0,) * len(arrays))
 
 
 def compact_sorted_words(valid, wa, wb, wc, *payloads, word_fill=0):

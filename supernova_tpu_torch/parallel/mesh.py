@@ -13,14 +13,14 @@ CPU when the CPU is asked for.
 The sharded modules run their shard_map bodies bulk-synchronously: every
 step is a loop over this process's shards, and the steps that talk meet in
 a collective over per-shard lists (`exchange`, `give_back`, `all_gather`,
-`psum`, `any`).  The exchange is the reference's ragged (TPU) semantics:
-only real rows move, each receiver gets its senders' rows in sender order,
-and a `capacity` bounds the rows one shard receives (the rows past it are
-dropped and counted).  Its destination sort is kcodec.lex_argsort, kernel
-K4 on the card.  In a multi-process fleet (parallel/dist.py) the mesh holds
-this process's row of the host axis; an exchange over the host axis then
-runs over torch.distributed.all_to_all_single, every other collective in
-process.
+`psum`, `tensor_sum`, `any`).  The exchange is the reference's ragged (TPU)
+semantics: only real rows move, each receiver gets its senders' rows in
+sender order, and a `capacity` bounds the rows one shard receives (the
+rows past it are dropped and counted).  Its destination sort is
+kcodec.lex_argsort, kernel K4 on the card.  In a multi-process fleet
+(parallel/dist.py) the mesh holds this process's row of the host axis; an
+exchange over the host axis then runs over
+torch.distributed.all_to_all_single, every other collective in process.
 """
 from __future__ import annotations
 
@@ -158,6 +158,19 @@ class Mesh:
 
             dist.all_reduce(total, group=self.group)
         return int(total)
+
+    def tensor_sum(self, xs):
+        """Every shard's tensor (one shape and dtype) -> on each shard's
+        device, their sum over the mesh (jax.lax.psum inside shard_map).
+        Shards summed in mesh order; shards on one device share one tensor."""
+        if self.group is not None:
+            raise NotImplementedError(
+                "a fleet mesh sums tensors only within one process; the steps that "
+                "need it run on a mesh of one process")
+        total = xs[0].to(self.devices[0], copy=True)
+        for x in xs[1:]:
+            total += x.to(total.device)
+        return [total.to(d) for d in self.devices]
 
     def any(self, flags) -> bool:
         return self.psum(int(bool(f)) for f in flags) > 0

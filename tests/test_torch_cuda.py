@@ -587,3 +587,67 @@ def test_cli_run_cuda_equals_cpu(dev, tmp_path):
                   json.loads((out / "pipestance.json").read_text())["stages"].items()}
         got[device] = (fastas, summary, stages)
     assert got["cuda"] == got["cpu"]
+
+
+def test_links_votes_and_fmindex_cuda_equal_cpu(dev):
+    """The last modules' entry points on the card and on CPU tensors at a
+    small size: stable_compact (K2, its tail zero), bc_link_triples and
+    sharded_bc_links over 4 shards (K4 and K2 launched), sharded_vote_matrix
+    and the dry run's two rounds, suffix_array, FMIndex.from_edges and
+    count_batch_device - each equal to its CPU result."""
+    from supernova_tpu_torch.align import fmindex
+    from supernova_tpu_torch.asm.links import incidence_from_sets, link_triples_np
+    from supernova_tpu_torch.ops import segments
+    from supernova_tpu_torch.parallel import mesh, rounds, sharded_phase, sharded_scaffold
+
+    rng = np.random.default_rng(12)
+    valid = torch.from_numpy(rng.random(5000) < 0.3)
+    cols = [torch.from_numpy(rng.integers(0, 2**31, 5000)) for _ in range(3)]
+    kernels.reset_launch_counts()
+    nv, got = segments.stable_compact(valid.to(dev), *(c.to(dev) for c in cols))
+    assert kernels.launch_counts()["compact"] == 1
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, segments.stable_compact(valid, *cols)[1]))
+    assert not any(a[int(nv):].any() for a in got)
+
+    sets = [np.sort(rng.choice(300, size=rng.binomial(300, 0.1), replace=False)) + 1
+            for _ in range(80)]
+    bcv, item = incidence_from_sets(sets)
+    for cap in (4, 64):
+        kernels.reset_launch_counts()
+        got = sharded_scaffold.bc_link_triples(bcv, item, cap=cap, min_shared=2, device=dev)
+        counts = kernels.launch_counts()
+        assert counts["sort"] >= 2 and counts["compact"] == 2, counts
+        want = link_triples_np(bcv, item, min_shared=2, max_per_bc=cap)
+        assert all(np.array_equal(a.cpu().numpy(), b) for a, b in zip(got[:3], want))
+        shards = sharded_scaffold.split_incidence(bcv, item, 4)
+        got = sharded_scaffold.sharded_bc_links(mesh.make_mesh(4, "cuda"), *shards, cap=cap,
+                                                min_shared=2)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+    eb = np.full(50, -1, np.int32)
+    es = np.zeros(50, np.int32)
+    eb[:20], es[:20] = np.arange(20) // 2, np.where(np.arange(20) % 2, -1, 1)
+    votes = sharded_phase.split_votes(rng.integers(-1, 60, 20000), rng.integers(-1, 90, 20000), 4)
+    got = sharded_phase.sharded_vote_matrix(mesh.make_mesh(4, "cuda"), eb, es, *votes, 10, 80)
+    want = sharded_phase.sharded_vote_matrix(mesh.make_mesh(4, "cpu"), eb, es, *votes, 10, 80)
+    assert np.array_equal(got, want) and got.any()
+    assert rounds.scaffold_join_round(mesh.make_mesh(4, "cuda")) == (4, 2)
+    assert rounds.phase_round(mesh.make_mesh(4, "cuda")) == (2, 1.0)
+
+    edges = [rng.integers(0, 4, int(rng.integers(50, 3000)), dtype=np.uint8) for _ in range(60)]
+    edges[3] = np.tile(edges[2][:40], 30)  # a long repeat: more doubling rounds
+    kernels.reset_launch_counts()
+    fm = fmindex.FMIndex.from_edges(edges, device=dev)
+    assert kernels.launch_counts()["sort"] > 0
+    want = fmindex.FMIndex.from_edges(edges, device="cpu")
+    for f in ("bwt", "sa", "less", "occ_ck", "edge_starts"):
+        assert np.array_equal(getattr(fm, f), getattr(want, f)), f
+    pats = np.zeros((3000, 40), np.uint8)
+    lens = rng.integers(0, 41, 3000)
+    for i in range(3000):
+        e = edges[i % 60]
+        s = int(rng.integers(0, len(e) - 40))
+        pats[i] = e[s : s + 40]
+    got = fm.count_batch_device(pats, lens, device=dev)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want.count_batch_device(pats, lens, device="cpu"))

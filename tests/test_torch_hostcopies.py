@@ -7,7 +7,8 @@ scaffold stage's asm modules and the out modules of run_full, the count's
 numpy canonicalization and asm/het.py apart from its device, and the CLI's
 host modules: ingest demux, out exports/sam/readqa, asm
 evaluate/astats/diagnose/minhash, core/config.py apart from its package
-name and pipeline/orchestrate.py apart from its host rank) against their
+name, pipeline/orchestrate.py apart from its host rank, the FM-index's
+host query and the mesh modules' split_incidence/split_votes) against their
 originals: the same source apart from the note that names the original,
 and the same outputs on the same inputs (tests/test_orchestrate.py's and
 tests/test_config.py's cases on either package); and the host graph's
@@ -767,3 +768,47 @@ def config_addin_reaches_its_own_package(pkg):
 def test_config_cases(case, pkg):
     """tests/test_config.py's cases on either package's addin registry."""
     case(pkg)
+
+
+HOST_HALVES = {
+    "align.fmindex": ("FMIndex.occ", "FMIndex.backward_search", "FMIndex.count",
+                      "FMIndex.locate"),
+    "parallel.sharded_scaffold": ("split_incidence",),
+    "parallel.sharded_phase": ("split_votes",),
+}
+
+
+def attr_path(mod, dotted):
+    for name in dotted.split("."):
+        mod = getattr(mod, name)
+    return mod
+
+
+@pytest.mark.parametrize("mod", sorted(HOST_HALVES))
+def test_fmindex_and_mesh_host_halves_are_the_original(mod):
+    """The FM-index's host query and the mesh modules' host prep are the
+    reference's source, with the same outputs: the query on indexes built
+    by either package (tests/test_torch_fmindex.py holds the builds equal),
+    the shards on the same rows."""
+    ref = importlib.import_module(f"supernova_tpu.{mod}")
+    port = importlib.import_module(f"supernova_tpu_torch.{mod}")
+    for name in HOST_HALVES[mod]:
+        assert inspect.getsource(attr_path(ref, name)) == inspect.getsource(attr_path(port, name))
+    rng = np.random.default_rng(21)
+    if mod == "align.fmindex":
+        edges = [rng.integers(0, 4, int(rng.integers(40, 200)), dtype=np.uint8) for _ in range(9)]
+        fr, fp = ref.FMIndex.from_edges(edges), port.FMIndex.from_edges(edges, device="cpu")
+        for _ in range(40):
+            e = edges[int(rng.integers(len(edges)))]
+            s = int(rng.integers(0, len(e) - 12))
+            pat = e[s : s + int(rng.integers(1, 12))]
+            assert fr.count(pat) == fp.count(pat)
+            assert np.array_equal(fr.locate(pat), fp.locate(pat))
+            r = rng.integers(0, len(fr.bwt) + 1, 7)
+            assert np.array_equal(fr.occ(r, pat[0]), fp.occ(r, pat[0]))
+        return
+    split = HOST_HALVES[mod][0]
+    for n, n_dev in ((0, 3), (1, 1), (700, 8), (3000, 3)):
+        a, b = rng.integers(0, 2**31 - 1, (2, n)).astype(np.int32)
+        for x, y in zip(getattr(ref, split)(a, b, n_dev), getattr(port, split)(a, b, n_dev)):
+            assert x.dtype == y.dtype and np.array_equal(x, y)

@@ -186,7 +186,8 @@ def test_port_never_imports_jax():
     then 10x FASTQs through preflight, ingest, Pipeline.run, stage_patch
     and stage_supergraph, the closure glue on the device route, run_full
     (scaffold phases, phasing, the het DP, every FASTA flavor), a mesh
-    count and a mesh path on CPU shards, and the command line's simulate
+    count and a mesh path on CPU shards, bc_link_triples, a 2-shard
+    sharded_vote_matrix, an FM-index, and the command line's simulate
     and `run --device cpu` leaves jax and every
     supernova_tpu module out of sys.modules (needs its own process: conftest
     imports jax and the JAX package); nor does `python -m
@@ -260,6 +261,17 @@ with tempfile.TemporaryDirectory() as d:
                                             da["from_v"], da["to_v"], da["edge_kmers"], inputs),
                            blocks)
     assert rp4.path_len.shape[0] == rs.n_reads and int((rp4.path_len > 0).sum()) > 0
+    from supernova_tpu_torch.align import fmindex
+    from supernova_tpu_torch.parallel import sharded_phase, sharded_scaffold
+    i1, i2, sh, nv = sharded_scaffold.bc_link_triples(np.array([1, 1, 2, 2]), np.array([0, 1, 0, 1]),
+                                                      device="cpu")
+    assert (i1.tolist(), i2.tolist(), sh.tolist()) == ([0], [1], [2])
+    S = sharded_phase.sharded_vote_matrix(pmesh.make_mesh(2, "cpu"), np.array([0, 0]),
+                                          np.array([1, -1]), *sharded_phase.split_votes(
+                                              np.array([0, 1, 0]), np.array([0, 0, 1]), 2), 1, 2)
+    assert S.tolist() == [[0, 1]]
+    fm = fmindex.FMIndex.from_edges([np.array([0, 1, 2, 0, 1], np.uint8)], device="cpu")
+    assert fm.count(np.array([0, 1], np.uint8)) == 2
     from supernova_tpu_torch import cli
     with contextlib.redirect_stdout(io.StringIO()):
         assert cli.main(["simulate", "--out", d + "/sim", "--genome-size", "6000", "--barcodes",

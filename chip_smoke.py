@@ -54,8 +54,12 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      write_sim_fastqs (one process a lane) in a process started before
      phase 2, beside phases 2-5 and 10, then found by discover_input_fastqs, checked by
      preflight and read by ingest_10x_fastqs (walls); then the checks of 5
-     through run(), which takes the blocked count (>= 2 blocks spilled,
-     one device merge) and the blocked pather; then stage_patch on the
+     through run(), whose count and pather plan their blocks from the
+     card's free memory (count_block_positions, path_block_positions:
+     printed, neither the reference's 96M, no OOM retry; an H100 80GB
+     counts the genome in one block and paths it in several); then
+     [derived kernels]: K1-K4 against their twins at the shapes the card's
+     count block gives them on the genome; then stage_patch on the
      pather's paths (paths.npz reused by a resumed Pipeline, no launch):
      gap pairs and closures, the patched graph's edges, the re-path's
      placed_perc, the rebuild's launches (each kernel > 0 when anything
@@ -117,14 +121,18 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      (one strand of every edge plus the closures, unbarcoded, min_freq 1,
      min_read_len K).  The genome's later phases use this FASTQ-ingested
      readset;
-  7. the genome's count three more ways (count stage only): (a) its merge
-     cut into >= 4 kmer-range partitions on the card, blocks spilled to a
-     directory; (b) the same call again, every block resumed from the
-     spills and none recounted; (c) count_readset beside a ballast tensor
-     that leaves the card less free memory than a 96M-position block's
-     count peak but more than a 48M one's (both measured first), so it
-     runs out of memory and halves its block size.  Each table equals the
-     fastq run's bit for bit; wall, device peak, partitions, launches;
+  7. the genome's count four more ways (count stage only), each at the
+     reference's 96M-position blocks: (0) blocked, >= 2 blocks spilled and
+     one device merge; (a) its merge cut into >= 4 kmer-range partitions
+     on the card, blocks spilled to a directory; (b) the same call again
+     with no block size given, every block resumed from the spills in
+     their own 96M blocks (not the card's budget) and none recounted; (c)
+     count_readset from 96M beside a ballast tensor that leaves the card
+     less free memory than a 96M-position block's count peak but more
+     than a 48M one's (both measured first, allocated and reserved), so
+     it runs out of memory and halves its block size.  Each table equals
+     the fastq run's bit for bit (the card's budget held to the
+     reference's blocking); wall, device peak, partitions, launches;
      the genome's first block counted from prepare_reads and from the
      packed inputs it replaced (a yardstick): identical raw tables, walls;
      then the general pather, with and without the tail cut, equal to the
@@ -138,7 +146,8 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      (every position a sort row, the sorted stream ending in one sentinel
      run; K3 with (1, 0) and with the filter, then alone on the real rows,
      the sentinel run and its last half; K2 on both K3 outputs); then
-     through Pipeline(device="cuda").run() with the checks of 5: the blocked
+     through Pipeline(device="cuda").run() with the checks of 5, the
+     block budgets pinned to 96M positions (fixed_blocks): the blocked
      mixed count and the blocked general pather; its count again at
      48M-position blocks, equal to the Pipeline's table; its paths at
      96M-position blocks, then beside a ballast between one 96M- and one
@@ -465,6 +474,79 @@ def once_ms(torch, fn):
     return out, s.elapsed_time(e)
 
 
+def phase_kernels_derived(torch, rs, dev, res, crec):
+    """K1/K4/K3/K2 against their plain twins at the shapes the card's own
+    count block gave them on the genome's main path (crec, the count
+    stage's record: its block_positions, blocks and first block's
+    positions and sort rows, which the block here must match): the first
+    block's positions, its sort rows after the tail cut (4 keys), K3 with
+    the count's filter on the sorted stream and K2 on its kept run ends.
+    Exactly equal; kernel ms (median of 3), the plain twin's (one call:
+    K3's takes seconds here), the bound and one library call where one
+    exists; kept in res[name] as derived_* keys."""
+    from supernova_tpu_torch.kmer import count as kcount
+    from supernova_tpu_torch.ops.kernels import kmer_extract as k1
+    from supernova_tpu_torch.ops.kernels import run_reduce as k3
+    from supernova_tpu_torch.ops.kernels import sort as k4
+
+    blocks = kcount.split_readset_blocks(rs, crec["block_positions"])
+    check(len(blocks) == crec["blocks"], f"derived kernels: {len(blocks)} blocks at "
+          f"{crec['block_positions']} positions, the main path counted {crec['blocks']}")
+    # prepared as the main path's count prepared its first block
+    p = (kcount.prepare_reads(rs, dev) if len(blocks) == 1 else kcount.prepare_reads(
+        blocks[0], dev, pad_to_positions=max(int(b.offsets[-1]) for b in blocks),
+        pad_to_reads=max(b.n_reads for b in blocks)))
+    check(p["pos_read"].shape[0] == crec["first_block_positions"],
+          f"derived kernels: {p['pos_read'].shape[0]} positions, the main path's first block "
+          f"had {crec['first_block_positions']}")
+    codes, n = p["codes_ext"], p["pos_read"].shape[0]
+    out = {}
+
+    def against_twin(name, got, twin, shape):
+        ref, plain = once_ms(torch, twin)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        got = got if isinstance(got, tuple) else (got,)
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+              f"{name} differs from plain (derived block)")
+        out[name] = dict(shape=shape, max_abs_err=max_abs_err(torch, zip(got, ref)),
+                         plain_ms=plain, library_ms=None)
+
+    against_twin("kmer_extract", k1.sliding_words_cuda(codes, n),
+                 lambda: k1.sliding_words_plain(codes, n), f"{n} positions")
+    out["kmer_extract"].update(ms=median_ms(torch, lambda: k1.sliding_words_cuda(codes, n), reps=3),
+                               bound_ms=bound_ms(codes.numel() * 4 + n * 3 * 8))
+    canon, pk = kcount.occurrence_rows(codes, p["pos_read"], p["glen_pos"], p["bc_pos"],
+                                       p["uniform_rl"])
+    del p, codes
+    keys, rows = (*canon, pk), pk.shape[0]
+    check(rows == crec["first_block_sort_rows"], f"derived kernels: {rows} sort rows, the "
+          f"main path's first block had {crec['first_block_sort_rows']}")
+    perm = k4.lex_argsort_cuda(*keys)
+    against_twin("sort", perm, lambda: k4.lex_argsort_plain(*keys), f"{rows} rows x 4 keys")
+    packed = k4._pair(keys[0], keys[1])
+    out["sort"].update(
+        ms=median_ms(torch, lambda: k4.lex_argsort_cuda(*keys), reps=3),
+        bound_ms=bound_ms(rows * 8 * (len(keys) + 1)),
+        library_ms=median_ms(torch, lambda: torch.sort(packed, stable=True).indices, reps=3),
+        library_shape=f"torch.sort(stable=True) of keys 0-1 packed in one int64, {rows} rows")
+    del packed
+    ws, pk = canon.gather(perm), pk[perm]
+    del canon, perm, keys
+    mf, mb = kcount.MIN_FREQ, kcount.MIN_BC
+    got = k3.run_reduce_cuda(ws.a, ws.b, ws.c, pk, mf, mb)
+    against_twin("run_reduce", got, lambda: k3.run_reduce_plain(ws.a, ws.b, ws.c, pk, mf, mb),
+                 f"{rows} rows")
+    out["run_reduce"].update(
+        ms=median_ms(torch, lambda: k3.run_reduce_cuda(ws.a, ws.b, ws.c, pk, mf, mb), reps=3),
+        bound_ms=bound_ms(rows * (4 * 8 + 1 + 4 + 4)))
+    keep, count, stats = got
+    del pk, got
+    out["compact"] = compact_kept(torch, keep, (ws.a, ws.b, ws.c, count, stats), "derived block")[0]
+    for name, r in out.items():
+        print_kernel(f"{name} (the card's count block)", r)
+        res[name].update({f"derived_{k}": v for k, v in r.items()})
+
+
 def phase_kernels_mixed(torch, rs, dev, res):
     """K1/K4/K3/K2 against their plain twins at the shapes the first block
     of the mixed-length genome gives them in the blocked count: every
@@ -649,17 +731,17 @@ def print_kernel(name, r):
 def phase_small_slice(torch, rs, tag="small", block_positions=None):
     """The slice on CUDA vs the CPU plain path: identical outputs (table,
     every BaseGraph array, ReadPaths[:n_reads], paths.npz and ebcx.npz).
-    block_positions, when given, stands in for BLOCK_POSITIONS so that both
-    take the blocked count and the blocked pather."""
+    block_positions, when given, pins both devices' block budgets
+    (fixed_blocks) so that both take the blocked count and the blocked
+    pather."""
+    import contextlib
+
     import numpy as np
     from supernova_tpu_torch import convert
-    from supernova_tpu_torch.kmer import count as kcount
     from supernova_tpu_torch.pipeline.run import Pipeline
 
     outs, records = {}, {}
-    saved = kcount.BLOCK_POSITIONS
-    kcount.BLOCK_POSITIONS = block_positions or saved
-    try:
+    with fixed_blocks(block_positions) if block_positions else contextlib.nullcontext():
         with tempfile.TemporaryDirectory() as d:
             for dev in ("cuda", "cpu"):
                 pl = Pipeline(f"{d}/{dev}", device=dev)
@@ -669,8 +751,6 @@ def phase_small_slice(torch, rs, tag="small", block_positions=None):
                        for name in ("paths.npz", "ebcx.npz")}
                 outs[dev] = (convert.table_to_numpy(table), bg, convert.readpaths_to_numpy(rp),
                              npz, {k: pl.stats.get(k) for k in PATHS_STATS})
-    finally:
-        kcount.BLOCK_POSITIONS = saved
     (tg, bgg, rg, zg, sg), (tc, bgc, rc, zc, sc) = outs["cuda"], outs["cpu"]
     check(tg.n_valid == tc.n_valid, f"{tag} slice: n_valid differs")
     for f in ("count", "nbc", "left_mask", "right_mask"):
@@ -745,14 +825,16 @@ def phase_slice(torch, rs, tag, outdir, min_blocks=None):
               f"{pl.stats.get(f'mem_peak_host_{name}_gb')}")
         check(rec["host_peak_gb"] > 0, f"{tag}: stage {name} logged no host peak")
     crec, prec = pl.stage_records["count"], pl.stage_records["paths"]
+    spilled = (f"{crec['block_rows']} raw rows spilled; merged {crec['raw_rows']} raw rows in "
+               f"{crec['partitions']} device merge(s)" if "raw_rows" in crec
+               else "one block: nothing spilled or merged")
+    print(f"[{tag}] count: {crec['blocks']} block(s) at {crec['block_positions']} positions, "
+          f"{spilled}; OOM retries {crec.get('oom_retries', 0)}; stage peak "
+          f"{crec['peak_gb']:.3f} GiB")
+    print(f"[{tag}] paths: {prec['blocks']} block(s) at {prec['block_positions']} positions; "
+          f"OOM retries {prec.get('oom_retries', 0)}; stage peak {prec['peak_gb']:.3f} GiB")
     if min_blocks is not None:
-        print(f"[{tag}] count: {crec.get('blocks')} blocks of {crec.get('block_rows')} raw "
-              f"rows spilled; merged {crec.get('raw_rows')} raw rows in "
-              f"{crec.get('partitions')} device merge(s); OOM retries {crec.get('oom_retries')}")
-        print(f"[{tag}] paths: {prec.get('blocks')} blocks at {prec.get('block_positions')} "
-              f"positions; OOM retries {prec.get('oom_retries')}")
-        check(crec.get("blocks", 1) >= min_blocks,
-              f"{crec.get('blocks', 1)} count blocks < {min_blocks}")
+        check(crec["blocks"] >= min_blocks, f"{crec['blocks']} count blocks < {min_blocks}")
     kd, ne, placed = (pl.stats.get(k) for k in ("kmers_distinct", "n_edges", "placed_perc"))
     print(f"[{tag}] reads {rs.n_reads}, bases {int(rs.offsets[-1])}: kmers_distinct {kd}, "
           f"n_edges {ne}, placed_perc {placed:.3f}, est_coverage {pl.stats.get('est_coverage')}")
@@ -1068,40 +1150,6 @@ def phase_bench(torch):
 
 # 10x lanes the genome's FASTQs are written as, one process each
 LANES = 8
-_LANE_READS = None  # the SimReads the forked lane writers read
-
-
-def _write_lane(job):
-    """One lane of _LANE_READS as bcl2fastq-named R1/R2 FASTQs."""
-    import pathlib
-
-    from supernova_tpu_torch.ingest.tenx import write_sim_fastqs
-    from supernova_tpu_torch.sim.genome import SimReads
-
-    lane, lo, hi, root = job
-    part = SimReads(**{f: getattr(_LANE_READS, f)[lo:hi] for f in (
-        "r1", "q1", "r2", "q2", "barcode", "bc_qual", "truth_pos", "truth_hap")})
-    r1, r2 = write_sim_fastqs(part, f"{root}/lane{lane}")
-    for mate, path in (("R1", r1), ("R2", r2)):
-        pathlib.Path(path).rename(f"{root}/GENOME_S1_L{lane:03d}_{mate}_001.fastq.gz")
-
-
-def write_lanes(reads, root):
-    """The SimReads as LANES lanes of 10x FASTQs (the repo's
-    write_sim_fastqs on contiguous slices of the pairs), written by forked
-    processes that touch no CUDA state."""
-    import multiprocessing
-
-    global _LANE_READS
-    n = reads.n_pairs()
-    cuts = [n * k // LANES for k in range(LANES + 1)]
-    os.makedirs(root, exist_ok=True)
-    _LANE_READS = reads
-    try:
-        with multiprocessing.get_context("fork").Pool(LANES) as pool:
-            pool.map(_write_lane, [(k + 1, cuts[k], cuts[k + 1], root) for k in range(LANES)])
-    finally:
-        _LANE_READS = None
 
 
 def _simulate_and_write(root):
@@ -1111,13 +1159,14 @@ def _simulate_and_write(root):
     runs the phases before [fastq run])."""
     import numpy as np
     from supernova_tpu_torch.pipeline import datasets
+    from supernova_tpu_torch.stats.rung import write_lanes
 
     t0 = time.perf_counter()
     reads, wl = datasets.simulate_reads(datasets.GENOME, datasets.GENOME_SEED)
     sim_s = time.perf_counter() - t0
     n_pairs = reads.n_pairs()
     t0 = time.perf_counter()
-    write_lanes(reads, f"{root}/fastqs")
+    write_lanes(reads, f"{root}/fastqs", "GENOME", LANES)
     np.save(f"{root}/whitelist.npy", wl)
     Path(root, "simulate.json").write_text(json.dumps(
         {"pairs": n_pairs, "simulate_s": sim_s, "write_s": time.perf_counter() - t0}))
@@ -1125,7 +1174,7 @@ def _simulate_and_write(root):
 
 def start_fastq_writer(root):
     """Start _simulate_and_write(root) in a forked process (it touches no
-    CUDA state, as write_lanes' writers do not) -> the process."""
+    CUDA state, as the lane writers do not) -> the process."""
     import multiprocessing
 
     proc = multiprocessing.get_context("fork").Process(target=_simulate_and_write, args=(root,))
@@ -1182,7 +1231,25 @@ def phase_fastq_run(torch, dev, outdir, writer):
           f"{100 * float((rs.bc > 0).mean()):.3f}% of reads on a whitelist barcode")
     shutil.rmtree(fq)
     asm = f"{outdir}/asm"
-    launches, crec, table, bg, pl = phase_slice(torch, rs, "fastq run", asm, min_blocks=2)
+    launches, crec, table, bg, pl = phase_slice(torch, rs, "fastq run", asm)
+    # the main path plans its blocks from the card: neither stage took the
+    # reference's fixed 96M positions (phase 7 holds its table to those)
+    prec = pl.stage_records["paths"]
+    from supernova_tpu_torch.align import pather
+    from supernova_tpu_torch.kmer import count as kcount
+
+    print(f"[fastq run] block budgets from the card: count {crec['block_positions']} positions "
+          f"(free bytes / COUNT_BYTES_PER_POSITION {kcount.COUNT_BYTES_PER_POSITION}), paths "
+          f"{prec['block_positions']} (beside the {bg.kmer_words.shape[0]}-row dictionary at "
+          f"PATH_BYTES_PER_DICT_ROW {pather.PATH_BYTES_PER_DICT_ROW}, at "
+          f"PATH_BYTES_PER_POSITION {pather.PATH_BYTES_PER_POSITION}); the reference's block "
+          f"{kcount.BLOCK_POSITIONS}")
+    for name, r in (("count", crec), ("paths", prec)):
+        check(r.get("oom_retries", 0) == 0, f"fastq run: the {name} ran out of memory at the "
+              "block its budget planned")
+        check(r["block_positions"] != kcount.BLOCK_POSITIONS
+              and r["block_positions"] % kcount.BLOCK_QUANTUM == 0,
+              f"fastq run: the {name} planned {r['block_positions']}-position blocks")
 
     # the pather's output for stage_patch: paths.npz, reused by a resumed
     # Pipeline (same reads, same graph), with no launch
@@ -2382,9 +2449,54 @@ def measured(torch, fn):
     return out, wall, (torch.cuda.max_memory_allocated() - base) / 2**30, launches
 
 
+class fixed_blocks:
+    """The count's and the pather's block budgets pinned to `positions` on
+    every device (count_block_positions, path_block_positions), so that a
+    run on the card plans the blocks a CPU run plans, or the reference's
+    96M-position blocks: the blocked paths at a size the card's free memory
+    would not give."""
+
+    def __init__(self, positions):
+        self.positions = positions
+
+    def __enter__(self):
+        from supernova_tpu_torch.align import pather
+        from supernova_tpu_torch.kmer import count as kcount
+
+        self.saved = kcount.count_block_positions, pather.path_block_positions
+        kcount.count_block_positions = lambda device, free_bytes=None: self.positions
+        pather.path_block_positions = lambda device, bg, free_bytes=None: self.positions
+        return self
+
+    def __exit__(self, *exc):
+        from supernova_tpu_torch.align import pather
+        from supernova_tpu_torch.kmer import count as kcount
+
+        kcount.count_block_positions, pather.path_block_positions = self.saved
+        return False
+
+
+def leave_free(torch, target, dev):
+    """A ballast tensor that leaves `target` bytes for the caching
+    allocator: the card's free memory (mem_get_info) plus the idle bytes
+    the allocator still holds (inside segments that live tensors pin,
+    which empty_cache cannot hand back) -> the ballast."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    idle = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    check(free + idle > target and target > idle,
+          f"{free} bytes free and {idle} idle: no ballast leaves {target}")
+    return torch.empty(free + idle - target, dtype=torch.uint8, device=dev)
+
+
 def block_peak_gib(torch, rs, max_positions, dev):
     """Device peak of counting the first block of rs cut at max_positions
-    (its inputs' copies to the card included)."""
+    (its inputs' copies to the card included) -> (allocated GiB above the
+    bytes allocated before, reserved GiB: every segment the allocator held,
+    the budget's measure)."""
     from supernova_tpu_torch.kmer import count as kcount
 
     blocks = kcount.split_readset_blocks(rs, max_positions)
@@ -2395,16 +2507,23 @@ def block_peak_gib(torch, rs, max_positions, dev):
         return int(kcount.count_block_raw(p["codes_ext"], p["pos_read"], p["glen_pos"], p["bc_pos"],
                                           p["uniform_rl"]).n_valid)
 
-    return measured(torch, count)[2]
+    peak = measured(torch, count)[2]
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    print(f"[genome count] one block at {max_positions} positions: device peak {peak:.3f} GiB "
+          f"allocated, {reserved:.3f} GiB reserved")
+    return peak, reserved
 
 
-def phase_genome_count(torch, rs, want, raw_rows, dev):
-    """The genome's count partitioned + spilled, resumed, and OOM-halved:
-    each table equals the fastq run's (`want`, on the host)."""
-    import gc
-
+def phase_genome_count(torch, rs, want, dev):
+    """The genome's count at the reference's 96M-position blocks (>= 2
+    blocks spilled, one device merge), then partitioned + spilled, resumed
+    (with no block size given: the spills' own) and OOM-halved: each table
+    equals the fastq run's (`want`, on the host, counted at the card's
+    budget) -> the raw rows at 96M-position blocks."""
     from supernova_tpu_torch import convert
     from supernova_tpu_torch.kmer import count as kcount
+
+    ref_block = kcount.BLOCK_POSITIONS
 
     def run(label, fn, info):
         table, wall, peak, launches = measured(torch, fn)
@@ -2417,40 +2536,55 @@ def phase_genome_count(torch, rs, want, raw_rows, dev):
               f"{info['peak_rss_gb']:.2f} GB; launches {launches}; table identical")
         return launches
 
+    info = {}
+    run("(0) at the reference's blocks", lambda: kcount.count_readset_blocked(
+        rs, dev, max_positions=ref_block, info=info), info)
+    check(info["blocks"] >= 2 and info["spilled_blocks"] == info["blocks"]
+          and info["partitions"] == 1,
+          f"genome count (0): {info['blocks']} blocks, {info['spilled_blocks']} spilled, "
+          f"{info['partitions']} merges (want >= 2 blocks spilled, one device merge)")
+    raw_rows = info["raw_rows"]
     with tempfile.TemporaryDirectory() as d:
-        for label in ("(a) partitioned + spilled", "(b) resumed"):
+        # (b) gives no block size: it takes the spills' 96M, not the budget
+        for label, max_pos in (("(a) partitioned + spilled", ref_block), ("(b) resumed", None)):
             info = {}
             launches = run(label, lambda: kcount.count_readset_blocked(
-                rs, dev, merge_rows=raw_rows // 3, spill_dir=f"{d}/spill", info=info), info)
+                rs, dev, max_positions=max_pos, merge_rows=raw_rows // 3,
+                spill_dir=f"{d}/spill", info=info), info)
             check(info["partitions"] >= 4, f"{info['partitions']} merge partitions < 4")
             check(launches["sort"] > 0 and launches["compact"] >= info["partitions"],
                   f"genome count {label}: the merge's kernels were not launched")
-        check(info["resumed_blocks"] == info["blocks"] and info["spilled_blocks"] == 0,
-              "genome count: a block was not resumed")
+        check(info["resumed_blocks"] == info["blocks"] and info["spilled_blocks"] == 0
+              and info["block_positions"] == ref_block,
+              f"genome count: a block was not resumed ({info['block_positions']}-position "
+              f"blocks; the card's budget is {kcount.count_block_positions(dev)})")
         check(launches["kmer_extract"] == 0 and launches["run_reduce"] == 0,
               "genome count: a resumed block was recounted")
 
-    p96 = block_peak_gib(torch, rs, kcount.BLOCK_POSITIONS, dev)
-    p48 = block_peak_gib(torch, rs, kcount.BLOCK_POSITIONS // 2, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    free = torch.cuda.mem_get_info()[0]
-    target = int((p96 + p48) / 2 * 2**30)
-    check(free > target, f"{free} bytes free < {target}")
-    ballast = torch.empty(free - target, dtype=torch.uint8, device=dev)
-    print(f"[genome count] count peak of one block: {p96:.3f} GiB at "
-          f"{kcount.BLOCK_POSITIONS} positions, {p48:.3f} GiB at {kcount.BLOCK_POSITIONS // 2}; "
+    p96, r96 = block_peak_gib(torch, rs, ref_block, dev)
+    p48, r48 = block_peak_gib(torch, rs, ref_block // 2, dev)
+    ballast = leave_free(torch, int((p96 + p48) / 2 * 2**30), dev)
+    print(f"[genome count] count peak of one block: {p96:.3f} GiB at {ref_block} positions, "
+          f"{p48:.3f} GiB at {ref_block // 2} ({(p96 - p48) * 2**30 / (ref_block // 2):.1f} B a "
+          f"position; reserved {(r96 - r48) * 2**30 / (ref_block // 2):.1f}; "
+          f"COUNT_BYTES_PER_POSITION {kcount.COUNT_BYTES_PER_POSITION}); "
           f"a {ballast.numel() / 2**30:.3f} GiB ballast leaves "
           f"{torch.cuda.mem_get_info()[0] / 2**30:.3f} GiB free")
     info = {}
     try:
-        launches = run("(c) OOM-halved", lambda: kcount.count_readset(rs, dev, info=info), info)
+        launches = run("(c) OOM-halved", lambda: kcount.count_readset(
+            rs, dev, info=info, max_positions=ref_block), info)
     finally:
         del ballast
     check(info["oom_retries"] >= 1, "genome count (c): the ballast caused no OOM retry")
     for name, c in launches.items():
         check(c > 0, f"genome count (c): kernel {name} was not launched")
     print(f"[genome count] (c) OOM retries {info['oom_retries']}")
+    # the budget plans reserved bytes: the allocator's segments, not its tensors
+    check((r96 - r48) * 2**30 / (ref_block // 2) <= kcount.COUNT_BYTES_PER_POSITION
+          and r96 * 2**30 <= kcount.COUNT_BYTES_PER_POSITION * ref_block,
+          "genome count: a block reserves more than COUNT_BYTES_PER_POSITION")
+    return raw_rows
 
 
 def phase_block_prep(torch, rs, dev):
@@ -2542,7 +2676,8 @@ def phase_mixed_count(torch, rs, want, dev):
 def paths_block_peak_gib(torch, bg, rs, max_positions, dev):
     """Device peak of pathing the first block of the mixed-length rs cut at
     max_positions, padded as the blocked pather pads it (its inputs' copies
-    to the card included; the graph's device arrays are already there)."""
+    to the card included; the graph's device arrays are already there) ->
+    (allocated GiB above the bytes allocated before, reserved GiB, wall s)."""
     from supernova_tpu_torch.align import pather
     from supernova_tpu_torch.kmer import count as kcount
 
@@ -2552,7 +2687,10 @@ def paths_block_peak_gib(torch, bg, rs, max_positions, dev):
     _, wall, peak, _ = measured(torch, lambda: int(pather._path_full(
         bg, kcount.prepare_reads(blocks[0], dev, pad_to_positions=pad_pos, pad_to_reads=pad_rd),
         dev, pather.MAX_PATH).path_len.sum()))
-    return peak, wall
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    print(f"[mixed paths] one block at {max_positions} positions: device peak {peak:.3f} GiB "
+          f"allocated, {reserved:.3f} GiB reserved")
+    return peak, reserved, wall
 
 
 def same_paths(want, got, label):
@@ -2566,32 +2704,40 @@ def phase_mixed_paths(torch, bg, rs, dev):
     """The blocked general pather at 96M-position blocks, then again beside
     a ballast that leaves free memory between one 96M- and one 48M-position
     block's paths peak: exactly one OOM retry, and the same ReadPaths."""
-    import gc
-
     from supernova_tpu_torch.align import pather
     from supernova_tpu_torch.kmer import count as kcount
 
-    p96, w96 = paths_block_peak_gib(torch, bg, rs, kcount.BLOCK_POSITIONS, dev)
-    p48, w48 = paths_block_peak_gib(torch, bg, rs, kcount.BLOCK_POSITIONS // 2, dev)
+    ref_block = kcount.BLOCK_POSITIONS
+    p96, r96, w96 = paths_block_peak_gib(torch, bg, rs, ref_block, dev)
+    p48, r48, w48 = paths_block_peak_gib(torch, bg, rs, ref_block // 2, dev)
+    per_pos = (p96 - p48) * 2**30 / (ref_block // 2)
+    reserved_per_pos = (r96 - r48) * 2**30 / (ref_block // 2)
+    m = int(bg.kmer_words.shape[0])
+    planned = pather.PATH_BYTES_PER_POSITION * ref_block + pather.PATH_BYTES_PER_DICT_ROW * m
     info = {}
-    want, wall, peak, _ = measured(torch, lambda: pather.path_readset(bg, rs, dev, info=info))
+    want, wall, peak, _ = measured(torch, lambda: pather.path_readset(
+        bg, rs, dev, info=info, max_positions=ref_block))
     check(info["oom_retries"] == 0, f"mixed paths: {info['oom_retries']} OOM retries unballasted")
     print(f"[mixed paths] {info['blocks']} blocks at {info['block_positions']} positions: wall "
           f"{wall:.3f} s, device peak {peak:.3f} GiB")
-    gc.collect()
+    # the dictionary again in fresh segments, so that no idle segment
+    # space beside it counts as free room
+    bg.__dict__.pop("_device_arrays", None)
     torch.cuda.empty_cache()
-    free = torch.cuda.mem_get_info()[0]
-    target = int((p96 + p48) / 2 * 2**30)
-    check(free > target, f"{free} bytes free < {target}")
-    ballast = torch.empty(free - target, dtype=torch.uint8, device=dev)
+    bg.device_arrays(dev)
+    ballast = leave_free(torch, int((p96 + p48) / 2 * 2**30), dev)
     print(f"[mixed paths] paths peak of one block: {p96:.3f} GiB ({w96:.3f} s) at "
-          f"{kcount.BLOCK_POSITIONS} positions, {p48:.3f} GiB ({w48:.3f} s) at "
-          f"{kcount.BLOCK_POSITIONS // 2}; a {ballast.numel() / 2**30:.3f} GiB ballast leaves "
+          f"{ref_block} positions, {p48:.3f} GiB ({w48:.3f} s) at {ref_block // 2} "
+          f"({per_pos:.1f} B a position; reserved {r96:.3f} / {r48:.3f} GiB, "
+          f"{reserved_per_pos:.1f} B a position; PATH_BYTES_PER_POSITION "
+          f"{pather.PATH_BYTES_PER_POSITION}; the budget plans {planned / 2**30:.3f} GiB at "
+          f"{ref_block} beside the {m}-row dictionary at PATH_BYTES_PER_DICT_ROW "
+          f"{pather.PATH_BYTES_PER_DICT_ROW}); a {ballast.numel() / 2**30:.3f} GiB ballast leaves "
           f"{torch.cuda.mem_get_info()[0] / 2**30:.3f} GiB free")
     info = {}
     try:
         rp, wall, peak, launches = measured(torch, lambda: pather.path_readset(
-            bg, rs, dev, info=info))
+            bg, rs, dev, info=info, max_positions=ref_block))
     finally:
         del ballast
     check(info["oom_retries"] == 1, f"mixed paths: {info['oom_retries']} OOM retries, not 1")
@@ -2600,6 +2746,9 @@ def phase_mixed_paths(torch, bg, rs, dev):
           f"{info['blocks']} blocks at {info['block_positions']} positions; wall {wall:.3f} s, "
           f"device peak {peak:.3f} GiB; launches {launches}; ReadPaths identical to the "
           "96M-position blocks'")
+    # the budget plans reserved bytes: the allocator's segments, not its tensors
+    check(reserved_per_pos <= pather.PATH_BYTES_PER_POSITION and r96 * 2**30 <= planned,
+          "mixed paths: a block reserves more than its budget plans")
 
 
 def phase_general_vs_fused(torch, bg, rs, dev):
@@ -2869,6 +3018,7 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
     print(f"[build] {lib_path.relative_to(_lib.PKG_DIR.parent)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
+    from supernova_tpu_torch.kmer import count as kcount
     from supernova_tpu_torch.pipeline import datasets
 
     dev = torch.device("cuda", 0)
@@ -2924,11 +3074,15 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
     torch.cuda.empty_cache()
     timed("patch kernels", phase_kernels_patch, torch, dev, bg, d, kres,
           patch_rec.get("save_s", 0.0))
+    torch.cuda.empty_cache()
+    timed("derived kernels", phase_kernels_derived, torch, rs_genome, dev, kres, crec)
     shutil.rmtree(f"{d}/asm")
     sg_launches = sg["launches"]
     del sg
     torch.cuda.empty_cache()
-    timed("genome count", phase_genome_count, torch, rs_genome, table, crec["raw_rows"], dev)
+    bg.__dict__.pop("_device_arrays", None)  # its segments would stay pinned
+    torch.cuda.empty_cache()
+    raw_rows = timed("genome count", phase_genome_count, torch, rs_genome, table, dev)
     timed("block prep", phase_block_prep, torch, rs_genome, dev)
     timed("general vs fused", phase_general_vs_fused, torch, bg, rs_genome, dev)
     rs_mixed = first_barcodes(datasets.r1_trimmed(rs_genome), MIXED_FRACTION)
@@ -2939,7 +3093,7 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
           f"{int(rs_mixed.offsets[-1])} bases")
     timed("mixed kernels", phase_kernels_mixed, torch, rs_mixed, dev, kres)
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as d:
+    with tempfile.TemporaryDirectory() as d, fixed_blocks(kcount.BLOCK_POSITIONS):
         launches_mixed, _, table_mixed, bg_mixed, _ = timed(
             "mixed", phase_slice, torch, rs_mixed, "mixed", d, min_blocks=2)
     torch.cuda.empty_cache()
@@ -2949,7 +3103,7 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
     torch.cuda.empty_cache()
     timed("graph chunks", phase_graph_chunks, torch, table, dev)
     torch.cuda.empty_cache()
-    timed("merge", phase_merge, torch, crec["raw_rows"])
+    timed("merge", phase_merge, torch, raw_rows)
     torch.cuda.empty_cache()
     timed("graph sort", phase_graph_sort, torch, table.n_valid)
     del table

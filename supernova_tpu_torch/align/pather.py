@@ -16,9 +16,12 @@ The dictionary values reach the query rows by the cummax + gather variant
 of the reference (`join_once`, else-branch), which the reference's tests
 hold equal to its associative-scan variant.  Left out as TPU-compile
 workarounds: SCAN_PROPAGATE_MAX_ROWS, JOIN_ROWS (`_join_block_positions`),
-table slicing and _is_compile_kill.  Readsets above BLOCK_POSITIONS bases
+table slicing and _is_compile_kill.  Readsets above one block's bases
 are pathed block by block (`path_readset_blocked`, the reference's
-_path_readset_blocked), halving the block size on a device OOM.
+_path_readset_blocked), halving the block size on a device OOM.  A block's
+size is `path_block_positions`: on a card what its free memory holds beside
+the graph's dictionary, on the CPU (the tests' device) the reference's
+BLOCK_POSITIONS.
 """
 from __future__ import annotations
 
@@ -32,6 +35,23 @@ from ..kmer import count as kcount
 
 MAX_PATH = 12  # max edges a 150 bp read can plausibly traverse; overflow flagged
 JITTER = 3  # max indel slack for captured gaps / junctions
+# peak device bytes per position of one paths block beside the dictionary
+# (the block's inputs, extraction, the query side of the merge join, hit
+# placement) that the caching allocator reserves: 212.0 measured on an
+# H100 80GB HBM3 (700 W) by chip_smoke.py's mixed-paths phase for the
+# general pather, the costlier one (21.248 GiB reserved at 96M positions,
+# 11.773 GiB at 48M; the tensors alone 194.2), rounded up
+PATH_BYTES_PER_POSITION = 224
+# peak device bytes per dictionary row (graph.kmer_words' sentinel-padded
+# rows) beside a paths block: the dictionary's own tensors (words,
+# node_edge, node_pos: 40 B) and the merge join's table side, reserved.
+# From the 100 Mb rung on an H100 80GB HBM3 (700 W; stats/rung.py): a
+# 231,735,296-position block beside the 123,389,952-row dictionary ran
+# out of memory with 76.70 GiB reserved while asking for 2.11 GiB more,
+# so a row takes at least (78.81 GiB - 224 B x 231,735,296) / 123,389,952
+# = 265.1 B; rounded up.  At 10 Mb (10,597,376 rows) the reserve at 96M
+# positions is 2.46 GB above 212.0 B a position: 232 B a row.
+PATH_BYTES_PER_DICT_ROW = 288
 
 
 class ReadPaths(NamedTuple):
@@ -257,11 +277,37 @@ def _path_full(bg, inp, device, max_path: int) -> ReadPaths:
     )
 
 
+def _placed_bytes(bg, device) -> int:
+    """Bytes of the graph's device arrays already cached on `device`."""
+    da = bg.__dict__.get("_device_arrays", {}).get(device, {})
+    ts = [t for v in da.values() for t in (v if isinstance(v, tuple) else (v,))]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def path_block_positions(device, bg, free_bytes: int | None = None) -> int:
+    """Bases one paths block takes on `device`: the card's memory free with
+    no dictionary on it (kcount.free_device_bytes plus the graph's device
+    arrays when they are already there, or free_bytes), less
+    PATH_BYTES_PER_DICT_ROW a dictionary row, over PATH_BYTES_PER_POSITION,
+    by kcount.block_budget.  Nothing is placed on the card.  A block's
+    queries sort beside the dictionary's rows, so it is capped at
+    kcount.MAX_BLOCK_POSITIONS less those rows.  The CPU (the tests'
+    device) takes the reference's BLOCK_POSITIONS."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return kcount.BLOCK_POSITIONS
+    m = int(bg.kmer_words.shape[0])
+    if free_bytes is None:
+        free_bytes = kcount.free_device_bytes(device) + _placed_bytes(bg, device)
+    return kcount.block_budget(free_bytes - m * PATH_BYTES_PER_DICT_ROW,
+                               PATH_BYTES_PER_POSITION, kcount.MAX_BLOCK_POSITIONS - m)
+
+
 def path_readset_blocked(bg, rs, device, max_path: int = MAX_PATH,
                          max_positions: int | None = None,
                          info: dict | None = None) -> ReadPaths:
     """Path a readset block by block (the count's barcode-boundary blocks,
-    BLOCK_POSITIONS bases when max_positions is None): every block is
+    path_block_positions bases when max_positions is None): every block is
     padded to the largest block's bases and reads, and its first n_reads
     rows are kept.  Reads are independent, so the concatenation equals the
     single-block result over [:n_reads]; the output has n_reads rows.
@@ -270,7 +316,7 @@ def path_readset_blocked(bg, rs, device, max_path: int = MAX_PATH,
     prepare_reads to the general pather.  info receives blocks and
     block_positions."""
     device = torch.device(device)
-    max_positions = max_positions or kcount.BLOCK_POSITIONS
+    max_positions = max_positions or path_block_positions(device, bg)
     blocks = kcount.split_readset_blocks(rs, max_positions)
     pad_pos = max(int(b.offsets[-1]) for b in blocks)
     pad_rd = max(b.n_reads for b in blocks)
@@ -289,16 +335,22 @@ def path_readset_blocked(bg, rs, device, max_path: int = MAX_PATH,
     return ReadPaths(*(torch.cat([p[i] for p in parts]) for i in range(len(ReadPaths._fields))))
 
 
-def path_readset(bg, rs, device, max_path: int = MAX_PATH, info: dict | None = None) -> ReadPaths:
+def path_readset(bg, rs, device, max_path: int = MAX_PATH, info: dict | None = None,
+                 max_positions: int | None = None) -> ReadPaths:
     """BaseGraph + ReadSet -> ReadPaths on `device`: rows padded to
     round_up(n_reads + 1, 1024) for one block, n_reads rows when the
-    readset spans several (as in the reference).  Above BLOCK_POSITIONS
-    bases the blocked pather runs under kcount.halving_retry (info receives
-    blocks, block_positions and oom_retries)."""
+    readset spans several (as in the reference).  max_positions: bases a
+    block takes (path_block_positions when None).  Above it the blocked
+    pather runs under kcount.halving_retry, which starts from it (info
+    receives blocks, block_positions and oom_retries; one block: blocks 1,
+    block_positions)."""
     device = torch.device(device)
-    if int(rs.offsets[-1]) > kcount.BLOCK_POSITIONS:
+    max_positions = max_positions or path_block_positions(device, bg)
+    if int(rs.offsets[-1]) > max_positions:
         return kcount.halving_retry("paths", device, info, lambda max_pos: path_readset_blocked(
-            bg, rs, device, max_path, max_positions=max_pos, info=info))
+            bg, rs, device, max_path, max_positions=max_pos, info=info), max_positions)
+    if info is not None:
+        info.update(blocks=1, block_positions=int(max_positions))
     pk = kcount.prepare_reads_packed(rs)
     if pk is not None:
         return _path_packed(bg, pk, device, max_path, kcount._round_up(rs.n_reads + 1, 1024))

@@ -317,8 +317,9 @@ def cmd_readqa(args) -> int:
     return 0
 
 
-def cmd_simulate(args) -> int:
-    from .ingest.tenx import write_sim_fastqs
+def simulate_sample(args):
+    """The linked reads `simulate` writes, from its arguments -> (SimReads,
+    whitelist codes, haplotype a, haplotype b)."""
     from .sim import genome as sim
 
     rng = np.random.default_rng(args.seed)
@@ -346,15 +347,29 @@ def cmd_simulate(args) -> int:
         bc_error_rate=0.01,
         chromium_model=not args.dense_sim,
     )
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    r1, r2 = write_sim_fastqs(reads, out)
+    return reads, wl, g, hb
+
+
+def write_sample_truth(out: Path, wl, g, hb) -> Path:
+    """`simulate`'s whitelist.txt and truth_hap_{a,b}.npy in out -> the
+    whitelist's path."""
     from .core import dna
 
     wl_path = out / "whitelist.txt"
     wl_path.write_text("\n".join(dna.codes_to_seq(b) for b in wl) + "\n")
     np.save(out / "truth_hap_a.npy", g)
     np.save(out / "truth_hap_b.npy", hb)
+    return wl_path
+
+
+def cmd_simulate(args) -> int:
+    from .ingest.tenx import write_sim_fastqs
+
+    reads, wl, g, hb = simulate_sample(args)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    r1, r2 = write_sim_fastqs(reads, out)
+    wl_path = write_sample_truth(out, wl, g, hb)
     print(json.dumps({"r1": str(r1), "r2": str(r2), "whitelist": str(wl_path),
                       "n_pairs": reads.n_pairs()}))
     return 0
@@ -693,24 +708,8 @@ def cmd_bench(args) -> int:
     return bench_main(args.device)
 
 
-def main(argv=None) -> int:
-    # stage progress (STAGE x: begin/done lines) goes to stderr — the
-    # reference's Date()-stamped cout tracing (SURVEY §5.1)
-    import logging
-
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s %(name)s %(levelname)s %(message)s",
-    )
-    # kill -USR1 <pid> dumps all thread stacks to stderr — the cheap
-    # where-is-it-stuck probe for host-stage walls on long runs
-    try:
-        import faulthandler
-        import signal
-
-        faulthandler.register(signal.SIGUSR1, all_threads=True)
-    except (ImportError, AttributeError, ValueError):
-        pass
+def build_parser() -> argparse.ArgumentParser:
+    """The command line's parser: every subcommand and its arguments."""
     ap = argparse.ArgumentParser(prog="supernova_tpu_torch")
     ap.add_argument(
         "--device", default="cuda",
@@ -905,7 +904,28 @@ def main(argv=None) -> int:
     b = sub.add_parser("bench", help="run the port's count and pather benchmark")
     b.add_argument("--device", default=argparse.SUPPRESS, help="as the top-level --device")
     b.set_defaults(fn=cmd_bench)
+    return ap
 
+
+def main(argv=None) -> int:
+    # stage progress (STAGE x: begin/done lines) goes to stderr — the
+    # reference's Date()-stamped cout tracing (SURVEY §5.1)
+    import logging
+
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s",
+    )
+    # kill -USR1 <pid> dumps all thread stacks to stderr — the cheap
+    # where-is-it-stuck probe for host-stage walls on long runs
+    try:
+        import faulthandler
+        import signal
+
+        faulthandler.register(signal.SIGUSR1, all_threads=True)
+    except (ImportError, AttributeError, ValueError):
+        pass
+    ap = build_parser()
     args = ap.parse_args(argv)
     # multi-host fleet: join before any device work when the SUPERNOVA_*
     # process environment is set (the mrp/SGE cluster-mode analogue, one

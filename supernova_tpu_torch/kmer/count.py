@@ -15,12 +15,15 @@ followed by kernel K2 (csrc/compact.cu); on the CPU it is the plain
 cumsum/cummax branch.  The two branches differ only in `nbc` above 4095
 (the fused stats word clamps it, as on the TPU).
 
-Readsets above BLOCK_POSITIONS flat bases take the blocked count
-(`count_readset_blocked`): the readset is cut at barcode boundaries into
-blocks, each block is counted WITHOUT the filter into a raw table of its
-distinct kmers, spilled to disk at 20 B a row and memory-mapped back
-(kmer/spill.py; a killed count resumes block by block), and the raw rows
-are merged + filtered on the card: in one merge when they fit the card's
+Readsets above one block's flat bases take the blocked count
+(`count_readset_blocked`).  A block's size is `count_block_positions`: on
+a card the free memory over COUNT_BYTES_PER_POSITION, on the CPU (the
+tests' device) the reference's BLOCK_POSITIONS.  The readset is cut at
+barcode boundaries into blocks, each block is counted WITHOUT the filter
+into a raw table of its distinct kmers, spilled to disk at 20 B a row and
+memory-mapped back (kmer/spill.py; a killed count resumes block by block,
+in the blocks its spill records), and the raw rows are merged + filtered
+on the card: in one merge when they fit the card's
 merge budget, else in kmer-range partitions, each merged on the card and
 pulled back, then finalized on the card (trim + chunked adjacency
 recompute).  `count_readset` halves the block size and retries when the
@@ -56,13 +59,30 @@ BC_IGNORED = -1  # occurrences whose barcode is untracked
 BC_FIELD_IGNORED = 0x3FFFFF  # 22-bit barcode field; all-ones = "ignored"
 BASE_BUCKET = 16384  # flat-base padding of mixed-length readsets
 READ_BUCKET = 1024  # read-count padding
-# flat bases one count block holds: the reference's unit of work
-# (supernova_tpu/kmer/count.py BLOCK_POSITIONS); larger readsets go through
-# the blocked count.  The output does not depend on the block size.
+# flat bases one count block holds in the reference, sized for a 16 GB
+# chip (supernova_tpu/kmer/count.py BLOCK_POSITIONS): the block on the CPU
+# (the tests' device); on a card the count and the pather size their
+# blocks from its free memory (count_block_positions, and
+# align/pather.py path_block_positions).  The output does not depend on the
+# block size.
 BLOCK_POSITIONS = 96_000_000
 # halving_retry (the count and the pather) halves the block size on a
-# device OOM down to this
+# device OOM down to this; no budget goes below it
 MIN_BLOCK_POSITIONS = 24_000_000
+# the largest block: prepare_reads carries a block's read offsets in int32
+# and K4 (ops/kernels/sort.py) sorts fewer than 2^31 rows with 32-bit row
+# indices; a block's sort rows are at most its positions plus a read
+# bucket's padding (< 2^20).  A multiple of 2^20.
+MAX_BLOCK_POSITIONS = (1 << 31) - (1 << 20)
+# derived budgets are whole multiples of this many positions
+BLOCK_QUANTUM = 1 << 20
+# peak device bytes per position of one count block (prepare_reads' inputs
+# on the card, extraction, K4's sort with its gathers, K3, K2) that the
+# caching allocator reserves, its segments' slack included: 174.2 measured
+# on an H100 80GB HBM3 (700 W) by chip_smoke.py's genome-count phase
+# (7.787 GiB reserved at 48M positions, 15.287 GiB at 96M = 171.0; the
+# tensors alone 150.9: 6.753 and 13.496 GiB), rounded up
+COUNT_BYTES_PER_POSITION = 176
 # peak device bytes per raw row of merge_raw_blocks, its inputs included,
 # when every row is a distinct kmer (its worst case): 178.7 measured on an
 # H100 by chip_smoke.py's merge phase, rounded up
@@ -203,9 +223,36 @@ def count_kmers(codes_ext, pos_read, glen_pos, bc_pos, min_freq: int = MIN_FREQ,
 
 
 def free_device_bytes(device: torch.device) -> int:
-    """The card's free memory, the caching allocator's idle bytes included."""
-    free, _ = torch.cuda.mem_get_info(device)
-    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    """The card's free memory once the caching allocator has handed its
+    idle segments back (torch.cuda.empty_cache): what a budget's fresh
+    allocations can take.  Idle bytes left inside segments that a live
+    tensor pins are not counted: an earlier stage's cached segments, split
+    to its own tensors' sizes, need not hold a larger tensor (an H100
+    pather block planned on them ran out of memory with 18 GiB of them
+    idle)."""
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info(device)[0]
+
+
+def block_budget(free_bytes: int, bytes_per_position: int, cap: int) -> int:
+    """Positions a block takes in free_bytes at bytes_per_position: at most
+    cap, rounded down to a multiple of BLOCK_QUANTUM, and never below
+    MIN_BLOCK_POSITIONS (a card with less room runs out of memory there,
+    and halving_retry raises)."""
+    n = min(max(free_bytes, 0) // bytes_per_position, cap)
+    return max(MIN_BLOCK_POSITIONS, n // BLOCK_QUANTUM * BLOCK_QUANTUM)
+
+
+def count_block_positions(device, free_bytes: int | None = None) -> int:
+    """Flat bases one count block takes on `device`: the card's free memory
+    (free_device_bytes, or free_bytes when given) over
+    COUNT_BYTES_PER_POSITION, by block_budget, at most MAX_BLOCK_POSITIONS.
+    The CPU (the tests' device) takes the reference's BLOCK_POSITIONS."""
+    if torch.device(device).type != "cuda":
+        return BLOCK_POSITIONS
+    if free_bytes is None:
+        free_bytes = free_device_bytes(torch.device(device))
+    return block_budget(free_bytes, COUNT_BYTES_PER_POSITION, MAX_BLOCK_POSITIONS)
 
 
 def join_chunk_rows(device: torch.device, m: int) -> int:
@@ -219,27 +266,31 @@ def join_chunk_rows(device: torch.device, m: int) -> int:
     return min(m, max(1 << 20, free_device_bytes(device) // JOIN_BYTES_PER_ROW - m))
 
 
-def recompute_adjacencies(table: KmerTable, chunk: int | None = None) -> KmerTable:
+def recompute_adjacencies(table: KmerTable, chunk: int | None = None,
+                          dictionary: W3 | None = None) -> KmerTable:
     """Intersect observed extension masks with table membership
     (KmerDict::recomputeAdjacencies).
 
     The table's rows are queried `chunk` rows at a time (join_chunk_rows by
     default), so each of the 8 sort-merge joins a chunk takes sorts the
     table plus one chunk, not the table plus all its rows: the reference's
-    bounded-memory recompute (recompute_adjacencies_host), on the card."""
+    bounded-memory recompute (recompute_adjacencies_host), on the card.
+    dictionary: the sorted words whose membership counts (the table's own
+    when None; a part of a table takes the whole one's)."""
     words = table.words
+    dictionary = words if dictionary is None else dictionary
     m = words.a.shape[0]
-    chunk = chunk or join_chunk_rows(words.a.device, m)
+    chunk = chunk or join_chunk_rows(words.a.device, dictionary.a.shape[0])
     new_r = torch.zeros_like(table.right_mask)
     new_l = torch.zeros_like(table.left_mask)
     for s in range(0, m, chunk):
         q = W3(*(w[s : s + chunk] for w in words))
         for b in range(4):
             succ, _ = kc.canonicalize(kc.successor_words(q, b))
-            _, found = kc.lookup_words_merge(words, succ)
+            _, found = kc.lookup_words_merge(dictionary, succ)
             new_r[s : s + chunk] |= found.to(new_r.dtype) << b
             pred, _ = kc.canonicalize(kc.predecessor_words(q, b))
-            _, found = kc.lookup_words_merge(words, pred)
+            _, found = kc.lookup_words_merge(dictionary, pred)
             new_l[s : s + chunk] |= found.to(new_l.dtype) << b
     return table._replace(
         left_mask=table.left_mask & new_l, right_mask=table.right_mask & new_r
@@ -521,8 +572,8 @@ def merge_raw_blocks(wa, wb, wc, count, stats, min_freq: int, min_bc: int) -> Km
 
 
 def merge_row_limit(device: torch.device) -> int:
-    """Raw rows one device merge can take: the card's free memory (the
-    caching allocator's idle bytes included) over MERGE_BYTES_PER_ROW.
+    """Raw rows one device merge can take: the card's free memory
+    (free_device_bytes) over MERGE_BYTES_PER_ROW.
     The CPU (the tests' device) sets no limit."""
     if device.type != "cuda":
         return 1 << 62
@@ -656,6 +707,19 @@ def merge_blocks(blocks, device, min_freq: int, min_bc: int, merge_rows: int | N
     return trim_table(table)
 
 
+def planned_block_positions(rs, device, min_freq: int, min_bc: int, spill_dir=None) -> int:
+    """The block size of a count with no explicit one: the size recorded in
+    spill_dir's meta when the directory holds a count of this readset (its
+    read count and filter), so that a resumed count keeps its blocks
+    whatever the card has free now; else count_block_positions(device)."""
+    meta = spill.read_meta(spill_dir) if spill_dir is not None else None
+    if meta and "block_positions" in meta and (meta.get("n_reads"), meta.get("min_freq"),
+                                               meta.get("min_bc")) == (
+            int(rs.n_reads), int(min_freq), int(min_bc)):
+        return int(meta["block_positions"])
+    return count_block_positions(device)
+
+
 def count_readset_blocked(rs, device, min_freq: int | None = None, min_bc: int | None = None,
                           min_read_len: int = K + 1, max_positions: int | None = None,
                           merge_rows: int | None = None, spill_dir=None,
@@ -665,7 +729,8 @@ def count_readset_blocked(rs, device, min_freq: int | None = None, min_bc: int |
     adjacency recompute on the card.  Bit-identical to the single-block
     count, whatever the block size and the partitions.
 
-    max_positions: bases per block (BLOCK_POSITIONS when None).
+    max_positions: bases per block (planned_block_positions when None: a
+    resumed spill directory's, else the device's budget).
     merge_rows: raw rows per device merge (merge_row_limit when None).
     spill_dir: where the blocks spill; a killed count resumes there (blocks
     with a done marker are not recounted) and its owner removes it; None
@@ -675,25 +740,30 @@ def count_readset_blocked(rs, device, min_freq: int | None = None, min_bc: int |
     device = torch.device(device)
     min_freq = MIN_FREQ if min_freq is None else min_freq
     min_bc = MIN_BC if min_bc is None else min_bc
-    max_positions = max_positions or BLOCK_POSITIONS
+    max_positions = max_positions or planned_block_positions(rs, device, min_freq, min_bc,
+                                                             spill_dir)
     blocks = split_readset_blocks(rs, max_positions)
     # every block pads to the largest one, as the reference's shared shape
     pad_pos = max(int(b.offsets[-1]) for b in blocks)
     pad_rd = max(b.n_reads for b in blocks)
     meta = dict(n_blocks=len(blocks), pad_pos=pad_pos, pad_rd=pad_rd,
-                n_reads=int(rs.n_reads), min_freq=int(min_freq), min_bc=int(min_bc))
+                n_reads=int(rs.n_reads), min_freq=int(min_freq), min_bc=int(min_bc),
+                block_positions=int(max_positions))
 
-    def count_block(b):
-        p = prepare_reads(b, device, pad_to_positions=pad_pos, pad_to_reads=pad_rd)
-        return count_block_raw(p["codes_ext"], p["pos_read"], p["glen_pos"], p["bc_pos"],
-                               p["uniform_rl"], min_read_len)
+    def count_block(i):
+        p = prepare_reads(blocks[i], device, pad_to_positions=pad_pos, pad_to_reads=pad_rd)
+        raw = count_block_raw(p["codes_ext"], p["pos_read"], p["glen_pos"], p["bc_pos"],
+                              p["uniform_rl"], min_read_len)
+        if i == 0:  # the raw table keeps the sort's row count
+            _first_block(info, p, raw.count)
+        return raw
 
     with spill.SpillDir(spill_dir, meta) as sd:
         pending = [i for i in range(len(blocks)) if not sd.done(i)]
         log.info("blocked count: %d blocks at <=%d positions, %d already spilled - %s",
                  len(blocks), max_positions, len(blocks) - len(pending), _device_memory(device))
         for i in pending:
-            raw = count_block(blocks[i])
+            raw = count_block(i)
             # drop the block's device buffers before the next block (and,
             # after the last, before the merge reads its budget)
             rows = len(sd.save(i, raw_block_columns(raw))[0])
@@ -712,6 +782,15 @@ def count_readset_blocked(rs, device, min_freq: int | None = None, min_bc: int |
         table = merge_blocks(cols, device, min_freq, min_bc, merge_rows, info)
         del cols  # release the memory maps before the directory goes
     return recompute_adjacencies(table)
+
+
+def _first_block(info: dict | None, inp: dict, sort_col) -> None:
+    """info receives the first counted block's shapes: first_block_positions
+    (prepare_reads' positions, padding included) and first_block_sort_rows
+    (the rows of sort_col, a column as long as the block's sort)."""
+    if info is not None:
+        info.update(first_block_positions=int(inp["pos_read"].shape[0]),
+                    first_block_sort_rows=int(sort_col.shape[0]))
 
 
 def _rss_gb() -> float:
@@ -758,13 +837,14 @@ def _free_failed_attempt(e: BaseException) -> None:
     torch.cuda.empty_cache()
 
 
-def halving_retry(what: str, device: torch.device, info: dict | None, attempt):
-    """attempt(max_positions) at BLOCK_POSITIONS; on a device OOM the
-    failed attempt is freed and the block size halved, down to
-    MIN_BLOCK_POSITIONS (smaller blocks on the same card: the blocked count
-    and pather give the same output at any block size).  Any other error,
-    or an OOM at the smallest size, raises.  info receives oom_retries."""
-    max_pos, retries = BLOCK_POSITIONS, 0
+def halving_retry(what: str, device: torch.device, info: dict | None, attempt,
+                  max_positions: int):
+    """attempt(max_positions); on a device OOM the failed attempt is freed
+    and the block size halved, down to MIN_BLOCK_POSITIONS (smaller blocks
+    on the same card: the blocked count and pather give the same output at
+    any block size).  Any other error, or an OOM at the smallest size,
+    raises.  info receives oom_retries."""
+    max_pos, retries = max_positions, 0
     while True:
         try:
             out = attempt(max_pos)
@@ -785,27 +865,33 @@ def halving_retry(what: str, device: torch.device, info: dict | None, attempt):
 
 def count_readset(rs, device, min_freq: int | None = None, min_bc: int | None = None,
                   min_read_len: int = K + 1, info: dict | None = None,
-                  spill_dir=None) -> KmerTable:
+                  spill_dir=None, max_positions: int | None = None) -> KmerTable:
     """ReadSet -> filtered, adjacency-true KmerTable on `device`.
 
-    Readsets above BLOCK_POSITIONS bases take the blocked count (`info`
-    receives its counts, and oom_retries; spill_dir as there) under
-    halving_retry.  The table is trimmed to the geometric-ladder row count
-    before the adjacency recompute, so its membership joins run at table
-    scale."""
+    max_positions: bases a block takes (planned_block_positions when None:
+    a resumed spill directory's, else the device's budget).  Readsets above
+    it take the blocked count (`info` receives its counts, and oom_retries;
+    spill_dir as there) under halving_retry, which starts from it; a
+    smaller one is one block (info: blocks 1, block_positions).  The table
+    is trimmed to the geometric-ladder row count before the adjacency
+    recompute, so its membership joins run at table scale."""
     from ..dbg.build import trim_table
 
     device = torch.device(device)
     min_freq = MIN_FREQ if min_freq is None else min_freq
     min_bc = MIN_BC if min_bc is None else min_bc
-    if int(rs.offsets[-1]) > BLOCK_POSITIONS:
+    max_positions = max_positions or planned_block_positions(rs, device, min_freq, min_bc,
+                                                             spill_dir)
+    if int(rs.offsets[-1]) > max_positions:
         return halving_retry("count", device, info, lambda max_pos: count_readset_blocked(
             rs, device, min_freq, min_bc, min_read_len, max_positions=max_pos,
-            spill_dir=spill_dir, info=info))
+            spill_dir=spill_dir, info=info), max_positions)
+    if info is not None:
+        info.update(blocks=1, block_positions=int(max_positions))
     inp = prepare_reads(rs, device)
-    table = count_kmers(
-        inp["codes_ext"], inp["pos_read"], inp["glen_pos"], inp["bc_pos"],
-        min_freq=min_freq, min_bc=min_bc, min_read_len=min_read_len,
-        uniform_rl=inp["uniform_rl"],
-    )
+    rows = occurrence_rows(inp["codes_ext"], inp["pos_read"], inp["glen_pos"], inp["bc_pos"],
+                           inp["uniform_rl"], min_read_len)
+    _first_block(info, inp, rows[1])
+    table = _reduce_packed(*rows, min_freq, min_bc)
+    del rows
     return recompute_adjacencies(trim_table(table))

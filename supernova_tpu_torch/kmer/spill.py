@@ -5,11 +5,14 @@ Each block's kept raw rows go to disk as five `.npy` columns
 `b{i}_{j}.npy` -- words a, b, c as uint32, count as int32, stats as uint32:
 20 B a row -- and are memory-mapped back for the merge, so the host holds
 no copy of them.  A persistent directory also holds `meta.json` (the block
-plan and the filter: the reference's keys exactly) and a `b{i}.ok` marker
-for each finished block, so a killed count resumes block by block; a meta
-that differs clears the directory.  The meta has no fingerprint of the
-reads' content (the reference's known defect, kept for parity).  Without a
-directory a temporary one is used and removed on close.
+plan and the filter: the reference's keys, and the block size) and a
+`b{i}.ok` marker for each finished block, so a killed count resumes block
+by block; a meta that differs clears the directory.  A count with no
+explicit block size takes the one the meta records (read_meta), so a
+resume keeps its blocks whatever the card has free.  The meta has no
+fingerprint of the reads' content (the reference's known defect, kept for
+parity).  Without a directory a temporary one is used and removed on
+close.
 """
 from __future__ import annotations
 
@@ -22,6 +25,15 @@ import numpy as np
 
 # dtypes of the five spilled columns: words a, b, c, count, stats
 COLUMN_DTYPES = (np.uint32, np.uint32, np.uint32, np.int32, np.uint32)
+
+
+def read_meta(path: str | os.PathLike) -> dict | None:
+    """The meta.json of a spill directory, or None when it has none."""
+    try:
+        with open(os.path.join(os.fspath(path), "meta.json")) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
 
 
 class SpillDir:
@@ -37,12 +49,7 @@ class SpillDir:
         self.path = os.fspath(path)
         meta_path = os.path.join(self.path, "meta.json")
         os.makedirs(self.path, exist_ok=True)
-        try:
-            with open(meta_path) as f:
-                stale = json.load(f) != meta
-        except (OSError, ValueError):
-            stale = True
-        if stale:
+        if read_meta(self.path) != meta:
             shutil.rmtree(self.path, ignore_errors=True)
             os.makedirs(self.path)
             with open(meta_path, "w") as f:

@@ -1,5 +1,5 @@
-"""Native (C++) host-side components, loaded via ctypes: the FASTQ decoder
-and the NucleateGraph glue core.
+"""Native (C++) host-side components, loaded via ctypes: the FASTQ decoder,
+the NucleateGraph glue core and BaseGraph.checksum's FNV-1a loop.
 
 The port's own copy of supernova_tpu/native/__init__.py (load_native,
 decode_fastq_bytes, load_nucleate; fastq_decode.cpp and nucleate_core.cpp
@@ -7,7 +7,8 @@ unchanged), kept equal to it by tests/test_torch_hostcopies.py.  One
 change: the shared libraries are built into supernova_tpu_torch/_build/,
 keyed on the source hash, beside the port's CUDA kernels.  The pure-Python
 paths are the reference's host code for machines without g++, not a device
-fallback.
+fallback.  fnv1a_64 (fnv.cpp) is the port's own: the reference runs that
+loop in Python.
 """
 from __future__ import annotations
 
@@ -139,3 +140,30 @@ def load_nucleate():
     except Exception:
         _NUC_LIB = None
     return _NUC_LIB
+
+
+_FNV_LIB = None
+_FNV_TRIED = False
+
+
+def fnv1a_64(data: bytes, h: int) -> int | None:
+    """64-bit FNV-1a of `data` continuing from h (fnv.cpp, BaseGraph.checksum's
+    loop), or None without g++ (the caller runs its Python loop: the same
+    value)."""
+    global _FNV_LIB, _FNV_TRIED
+    if _FNV_LIB is None and not _FNV_TRIED:
+        _FNV_TRIED = True
+        try:
+            src_path = Path(__file__).parent / "fnv.cpp"
+            tag = hashlib.sha1(src_path.read_bytes()).hexdigest()[:12]
+            so = _build_dir() / f"fnv_{tag}.so"
+            if not so.exists():
+                subprocess.run(["g++", "-O3", "-shared", "-fPIC", str(src_path), "-o", str(so)],
+                               check=True, capture_output=True)
+            lib = ctypes.CDLL(str(so))
+            lib.fnv1a_64.restype = ctypes.c_uint64
+            lib.fnv1a_64.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint64]
+            _FNV_LIB = lib
+        except (OSError, subprocess.CalledProcessError):
+            _FNV_LIB = None
+    return None if _FNV_LIB is None else int(_FNV_LIB.fnv1a_64(data, len(data), h))

@@ -4,8 +4,9 @@ genome that spans several.
 GENOME is the blocked slice: a 10 Mb diploid genome (het 0.001), 3,000
 barcodes x 10 molecules x 50 kb at coverage 0.3 per molecule, giving
 ~3.0M reads of 150 bp, ~450M bases, ~45x (the reference's ideal is
-38-56x): five count blocks of at most BLOCK_POSITIONS bases, the block
-count of the repo's own 10 Mb validation (scripts/val10mb.sh).  FULL is one
+38-56x): five count blocks at the reference's BLOCK_POSITIONS, the block
+count of the repo's own 10 Mb validation (scripts/val10mb.sh); one at an
+H100 80GB's own budget (kmer/count.py count_block_positions).  FULL is one
 count block of the same shape: a 2 Mb genome, 600 barcodes, ~600k reads,
 ~90M bases, just under BLOCK_POSITIONS.  SMALL is the 8 kb genome of the
 repo's verify notes.  All go through the port's copies of the simulator

@@ -21,9 +21,11 @@ Every stage writes the reference's checkpoint (reads.npz, kmers.npz,
 graph.npz, paths.npz, ebcx.npz, closures.npz, graph.patched.npz,
 cpaths.npz, dpaths.npz, supergraph.npz, <phase>/a.sup.npz) in its format,
 and with resume=True reloads it instead of recomputing (the reference's
-outdirs too).  Readsets above one count block take the blocked count and
-pather; the count stage's record then holds its block, row, partition,
-spill and OOM-retry counts, and every stage's record the kernel launches
+outdirs too).  Readsets above one block (on a card, what its free memory
+holds: kmer/count.py count_block_positions, align/pather.py
+path_block_positions) take the blocked count and pather; the count
+stage's record then holds its block size, block, row, partition, spill
+and OOM-retry counts, and every stage's record the kernel launches
 made in it; the scaffold stage's record holds each phase's wall and the
 het DP's pairs, shape and seconds.  finalize() writes summary.json,
 summary_cs.csv, stats/summary.txt and alerts.json; all_stats.json is
@@ -382,7 +384,8 @@ class Pipeline:
                 z["right_mask"], z["n_valid"]), self.device)
         spill_dir = self.outdir / "count_spill"
         ndev = self._mesh_ndev()
-        if ndev and int(rs.offsets[-1]) > kcount.BLOCK_POSITIONS:
+        if ndev and int(rs.offsets[-1]) > kcount.planned_block_positions(
+                rs, self.device, kcount.MIN_FREQ, kcount.MIN_BC, spill_dir):
             # the reference shards only a one-block readset (sharded +
             # blocked is future work there too)
             log.info("count: readset exceeds one block; using the blocked path")
@@ -569,7 +572,7 @@ class Pipeline:
                 return rp
         rec = self.stage_records.setdefault("paths", {})
         ndev = self._process_ndev()
-        if ndev and int(rs.offsets[-1]) > kcount.BLOCK_POSITIONS:
+        if ndev and int(rs.offsets[-1]) > pather.path_block_positions(self.device, bg):
             ndev = 0  # the blocked single-device pather, as the reference's
         if ndev:
             rp = self._path_sharded(bg, rs, ndev)

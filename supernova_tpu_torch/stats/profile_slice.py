@@ -100,7 +100,7 @@ def main(out_path: str, dataset: str = "FULL") -> int:
     with tempfile.TemporaryDirectory() as d:
         Pipeline(d, device=dev).run(datasets.simulate(datasets.SMALL, datasets.SMALL_SEED))
 
-    block = kcount.split_readset_blocks(rs, kcount.BLOCK_POSITIONS)[0]
+    block = kcount.split_readset_blocks(rs, kcount.count_block_positions(dev))[0]
     t = time.perf_counter()
     kcount.prepare_reads(block, dev)
     torch.cuda.synchronize()

@@ -1,0 +1,461 @@
+"""A genome-size rung of the reference's validation ladder on one device:
+simulated 10x FASTQs through the Pipeline's count, graph, paths and patch
+stages, one JSON line a step.
+
+    python -m supernova_tpu_torch.stats.rung --out DIR --genome-size N --repeats R \\
+        --barcodes B --whitelist-size W --seed S [--through count|graph|paths|patch] \\
+        [--device cuda|cpu] [--check-96m]
+
+The rungs are the reference's scripts/val*mb.sh; the 100 Mb one is
+--genome-size 100000000 --repeats 2000 --barcodes 40000 --whitelist-size
+163840 --seed 13.  Steps:
+  1. simulate with `simulate`'s model (cli.simulate_sample; its other
+     arguments at their defaults) and 2. write the reads as LANES
+     bcl2fastq-named lanes of 10x FASTQs, one forked process a lane, with
+     `simulate`'s whitelist.txt and truth files, all in DIR/sim by a process
+     of its own (its memory goes back when it ends); skipped when DIR/sim
+     holds them;
+  3. discovery, preflight and ingest_10x_fastqs of the lanes (DIR/run's
+     reads.npz instead when an earlier run left it), then
+     Pipeline(DIR/run, device, resume=True): stage_ingest and the stages
+     in order up to --through.  Every stage leaves its checkpoint, so a cut
+     run started again resumes without recounting (the count from its
+     spills, DIR/run/count_spill, in the blocks they were counted in).
+Each step prints one JSON line: wall; the stage's device peak; its host
+peak RSS, and the anonymous and file-backed parts apart (RssAnon, RssFile
+of /proc/self/status, sampled); free disk in DIR before and after; and
+the stage's counts (block budget, blocks, raw rows, partitions, kmers,
+edges, reads, placed_perc; the patch's closures and its rebuild's kmers).
+--check-96m (after the paths stage, before the patch stage): when the
+count's kmers differ from the reference's, the count again at the
+reference's 96M-position blocks, its raw rows and its table held to the
+stage's (range_recount: a range of leading words at a time, so its spill
+fits a chip call's disk); else the raw rows at those blocks (each block
+counted on the device and dropped).  The last line holds the reference's recorded
+numbers for the rungs in REFERENCE beside this run's, each "equal",
+"differs" or "not run".
+
+DIR needs room: the count spills ~20 B a raw row of its blocks (the 100 Mb
+rung: ~1.2e9 raw rows at an H100's blocks, 2.4e9 at 96M), and reads.npz,
+the lazy read store (reads.lazy/, above 2e9 bases), the FASTQs and the
+checkpoints take ~25 GB more.  The device is "cuda" unless asked; without a
+card it exits 1.  Imports no jax and nothing of supernova_tpu.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import multiprocessing
+import os
+import resource
+import shutil
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+
+# 10x lanes the FASTQs are written as, one process each
+LANES = 8
+STAGES = ("count", "graph", "paths", "patch")
+# the numbers the reference recorded for its rungs, by (genome size,
+# repeats, barcodes, whitelist size, seed)
+REFERENCE = {
+    (100_000_000, 2000, 40000, 163840, 13): dict(
+        source="scripts/val100mb.sh; artifacts/val100mb_r5/stage_walls.log:1,71,90",
+        kmers=103_997_650, raw_rows_96m=2_438_263_316, patch_kmers=103_998_749),
+    (30_000_000, 600, 12000, 49152, 12): dict(
+        source="scripts/val30mb.sh; artifacts/val30mb_r5/sim.log, run.log:18,36",
+        pairs=4_733_324, raw_rows_96m=473_961_288, kmers=31_187_695),
+}
+REFERENCE_BLOCK = 96_000_000  # the reference's count block (its raw rows are at this size)
+# leading-word ranges of the 96M recount: a quarter of its spill on disk at
+# a time (12 GB at the 100 Mb rung, beside ~20 GB of FASTQs, reads and
+# checkpoints, within a chip call's 45 GiB of disk writes)
+RECOUNT_PARTS = 4
+
+_LANE_READS = None  # the SimReads the forked lane writers read
+
+
+def _write_lane(job):
+    """One lane of _LANE_READS as bcl2fastq-named R1/R2 FASTQs."""
+    from ..ingest.tenx import write_sim_fastqs
+    from ..sim.genome import SimReads
+
+    lane, lo, hi, root, sample = job
+    part = SimReads(**{f: getattr(_LANE_READS, f)[lo:hi] for f in (
+        "r1", "q1", "r2", "q2", "barcode", "bc_qual", "truth_pos", "truth_hap")})
+    r1, r2 = write_sim_fastqs(part, f"{root}/lane{lane}")
+    for mate, path in (("R1", r1), ("R2", r2)):
+        Path(path).rename(f"{root}/{sample}_S1_L{lane:03d}_{mate}_001.fastq.gz")
+    os.rmdir(f"{root}/lane{lane}")
+
+
+def write_lanes(reads, root, sample: str, lanes: int = LANES):
+    """SimReads as `lanes` lanes of 10x FASTQs named
+    {sample}_S1_L00{lane}_R{1,2}_001.fastq.gz (ingest/tenx.py's
+    write_sim_fastqs on contiguous slices of the pairs), written by forked
+    processes that touch no CUDA state."""
+    global _LANE_READS
+    n = reads.n_pairs()
+    cuts = [n * k // lanes for k in range(lanes + 1)]
+    os.makedirs(root, exist_ok=True)
+    _LANE_READS = reads
+    try:
+        with multiprocessing.get_context("fork").Pool(lanes) as pool:
+            pool.map(_write_lane, [(k + 1, cuts[k], cuts[k + 1], root, sample)
+                                   for k in range(lanes)])
+    finally:
+        _LANE_READS = None
+
+
+def _simulate_and_write(sim_args, simdir: Path):
+    """Steps 1-2 in this (forked) process: the reads, their lanes, the
+    whitelist and truth files, then sim.json with the walls last (its
+    presence marks the directory complete)."""
+    from ..cli import simulate_sample, write_sample_truth
+
+    t0 = time.perf_counter()
+    reads, wl, g, hb = simulate_sample(sim_args)
+    sim_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_lanes(reads, simdir, "RUNG")
+    write_sample_truth(simdir, wl, g, hb)
+    (simdir / "sim.json").write_text(json.dumps(dict(
+        pairs=reads.n_pairs(), simulate_s=sim_s, write_s=time.perf_counter() - t0)))
+
+
+def rss_parts() -> dict:
+    """This process's resident bytes: VmRSS, and its anonymous and
+    file-backed parts, from /proc/self/status (RssAnon, RssFile) or, where
+    the kernel has no such lines, from /proc/self/smaps (the Anonymous
+    sums, and the rest of the Rss sums)."""
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key = line.split(":", 1)[0]
+            if key in ("VmRSS", "RssAnon", "RssFile"):
+                out[key] = int(line.split()[1]) * 1024
+    if "RssAnon" not in out:
+        rss = anon = 0
+        with open("/proc/self/smaps") as f:
+            for line in f:
+                if line.startswith("Rss:"):
+                    rss += int(line.split()[1]) * 1024
+                elif line.startswith("Anonymous:"):
+                    anon += int(line.split()[1]) * 1024
+        out.update(RssAnon=anon, RssFile=rss - anon)
+    return out
+
+
+class RssSampler:
+    """The high-waters of rss_parts(), sampled on a daemon thread."""
+
+    KEYS = ("VmRSS", "RssAnon", "RssFile")
+
+    def __init__(self, period_s: float = 1.0):
+        self.period_s = period_s
+        self.peak = dict.fromkeys(self.KEYS, 0)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _sample(self):
+        for key, v in rss_parts().items():
+            self.peak[key] = max(self.peak[key], v)
+
+    def _run(self):
+        while not self._stop.wait(self.period_s):
+            self._sample()
+
+    def __enter__(self):
+        self._sample()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=2.0)
+        self._sample()
+        return False
+
+    def gb(self) -> dict:
+        return {f"host_{k}_peak_gb": round(v / 1e9, 3) for k, v in self.peak.items()}
+
+
+def _disk_free_gb(path) -> float:
+    return round(shutil.disk_usage(path).free / 1e9, 3)
+
+
+def emit(line: dict) -> None:
+    print(json.dumps(line), flush=True)
+
+
+def _step(name: str, out: Path, fn):
+    """fn() with the host RSS sampled and the free disk read before and
+    after -> (fn's result, the line's common fields)."""
+    before = _disk_free_gb(out)
+    t0 = time.perf_counter()
+    with RssSampler() as rss:
+        res = fn()
+    return res, dict(step=name, wall_s=round(time.perf_counter() - t0, 3), **rss.gb(),
+                     disk_free_gb_before=before, disk_free_gb_after=_disk_free_gb(out))
+
+
+def simulate_step(sim_args, simdir: Path, out: Path) -> dict:
+    """Steps 1-2 (or nothing, where DIR/sim is complete) -> sim.json."""
+    if not (simdir / "sim.json").exists():
+        simdir.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        proc = multiprocessing.get_context("fork").Process(
+            target=_simulate_and_write, args=(sim_args, simdir))
+        proc.start()
+        proc.join()
+        if proc.exitcode != 0:
+            raise RuntimeError(f"the simulation process exited {proc.exitcode}")
+        sim = json.loads((simdir / "sim.json").read_text())
+        emit(dict(step="simulate", wall_s=round(time.perf_counter() - t0, 3),
+                  simulate_s=round(sim["simulate_s"], 3), write_s=round(sim["write_s"], 3),
+                  pairs=sim["pairs"], lanes=LANES,
+                  fastq_bytes=sum(p.stat().st_size for p in simdir.glob("*.fastq.gz")),
+                  children_max_rss_gb=round(
+                      resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss * 1024 / 1e9, 3),
+                  disk_free_gb_after=_disk_free_gb(out)))
+        return sim
+    sim = json.loads((simdir / "sim.json").read_text())
+    emit(dict(step="simulate", skipped=True, pairs=sim["pairs"]))
+    return sim
+
+
+def fastq_readset(simdir: Path, rundir: Path, out: Path):
+    """Step 3's ReadSet: DIR/run/reads.npz when a cut run left it, else
+    discovery, preflight and ingest_10x_fastqs of the lanes."""
+    from ..ingest.discovery import discover_input_fastqs
+    from ..ingest.reads import ReadSet
+    from ..ingest.tenx import ingest_10x_fastqs, load_whitelist
+    from ..pipeline.preflight import preflight
+
+    ck = rundir / "reads.npz"
+    if ck.exists():
+        rs, line = _step("reads.npz", out, lambda: ReadSet.load(ck))
+    else:
+        def ingest():
+            found = discover_input_fastqs(str(simdir))
+            if found["mode"] != "ILMN_BCL2FASTQ" or len(found["r1"]) != LANES:
+                raise RuntimeError(f"discovery found {found['mode']}, {len(found['r1'])} R1 files")
+            wl = load_whitelist(str(simdir / "whitelist.txt"))
+            pf = preflight(found["r1"], found["r2"], len(wl))
+            if not pf.ok:
+                raise RuntimeError(f"preflight errors {pf.errors}")
+            return ingest_10x_fastqs(found["r1"], found["r2"], wl)
+
+        rs, line = _step("fastq ingest", out, ingest)
+    emit(dict(line, reads=rs.n_reads, bases=int(rs.offsets[-1]),
+              barcoded_perc=round(100 * float((rs.bc > 0).mean()), 3) if rs.n_reads else 0.0))
+    return rs
+
+
+def raw_blocks(rs, device, block: int):
+    """Each block's raw table (kcount.count_block_raw) at `block`-position
+    blocks, cut and padded as count_readset_blocked cuts and pads them,
+    counted on the device one at a time."""
+    from ..kmer import count as kcount
+
+    blocks = kcount.split_readset_blocks(rs, block)
+    pad_pos = max(int(b.offsets[-1]) for b in blocks)
+    pad_rd = max(b.n_reads for b in blocks)
+    for b in blocks:
+        p = kcount.prepare_reads(b, device, pad_to_positions=pad_pos, pad_to_reads=pad_rd)
+        yield kcount.count_block_raw(p["codes_ext"], p["pos_read"], p["glen_pos"], p["bc_pos"],
+                                     p["uniform_rl"])
+
+
+def raw_rows_at(rs, device, max_positions: int) -> tuple[int, int]:
+    """The readset's raw rows (each block's distinct kmers, summed) at
+    blocks of max_positions, as count_readset_blocked spills them: each
+    block counted on the device and dropped -> (blocks, raw rows)."""
+    rows = [int(raw.n_valid) for raw in raw_blocks(rs, device, max_positions)]
+    return len(rows), sum(rows)
+
+
+def raw_rows_96m(rs, device, out: Path) -> int:
+    """--check-96m's raw rows at the reference's blocks (one line)."""
+    (blocks, raw), line = _step("raw rows at 96M", out, lambda: raw_rows_at(
+        rs, device, REFERENCE_BLOCK))
+    emit(dict(line, block_positions=REFERENCE_BLOCK, blocks=blocks, raw_rows=raw))
+    return raw
+
+
+def range_recount(rs, device, table, spill_dir: Path, block: int, parts: int) -> dict:
+    """The count again at `block`-position blocks, held to `table` (the
+    count stage's) one range of leading words at a time, so that only one
+    range's raw rows are on disk at once: the whole recount's spill (20 B
+    a raw row: ~49 GB at the 100 Mb rung) passes a chip call's disk.  For
+    each of `parts` ranges every block is counted raw on the device, its
+    rows in the range spilled, and the spills merged and filtered
+    (kcount.merge_blocks); their extension masks are intersected with
+    membership in `table` (recompute_adjacencies with the stage's table as
+    the dictionary) and the range's rows compared with the table's.  Equal
+    words in every range make that dictionary the recount's own, so equal
+    ranges mean equal tables -> blocks, raw rows, kmers, equal."""
+    from .. import convert
+    from ..core.kmer_codec import W3
+    from ..kmer import count as kcount
+    from ..kmer import spill
+
+    host = convert.table_to_numpy(table)
+    n = host.n_valid
+    raw_rows = kmers = nblocks = 0
+    equal = True
+    bounds = [k * (1 << 32) // parts for k in range(parts + 1)]
+    for lo, hi in zip(bounds, bounds[1:]):
+        with spill.SpillDir(spill_dir, dict(range=[lo, hi], block=block)) as sd:
+            for nblocks, raw in enumerate(raw_blocks(rs, device, block), 1):
+                a = raw.words.a[: int(raw.n_valid)]
+                i0, i1 = (int(torch_searchsorted(a, x)) for x in (lo, hi))
+                sub = kcount.RawBlockTable(W3(*(w[i0:i1] for w in raw.words)), raw.count[i0:i1],
+                                           raw.stats[i0:i1], i1 - i0)
+                raw_rows += i1 - i0
+                sd.save(nblocks - 1, kcount.raw_block_columns(sub))
+                del raw, sub, a
+            got = kcount.merge_blocks([sd.load(i) for i in range(nblocks)], device,
+                                      kcount.MIN_FREQ, kcount.MIN_BC)
+        shutil.rmtree(spill_dir, ignore_errors=True)
+        got = convert.table_to_numpy(kcount.recompute_adjacencies(got, dictionary=table.words))
+        r0, r1 = np.searchsorted(host.words[0][:n], [lo, hi])
+        kmers += got.n_valid
+        equal &= got.n_valid == r1 - r0 and all(
+            np.array_equal(x[r0:r1], y[: got.n_valid])
+            for x, y in zip((*host.words, *host[1:5]), (*got.words, *got[1:5])))
+    return dict(blocks=nblocks, raw_rows=raw_rows, kmers=kmers,
+                table_equal=bool(equal and kmers == n))
+
+
+def torch_searchsorted(sorted_col, value: int):
+    """First index of the ascending int64 column at or above value."""
+    import torch
+
+    return torch.searchsorted(sorted_col, torch.tensor([value], device=sorted_col.device))[0]
+
+
+def recount_96m(rs, device, table, out: Path) -> int:
+    """--check-96m where the kmers differ from the reference's: the count
+    again at the reference's blocks, by RECOUNT_PARTS ranges of leading
+    words (range_recount; spills under DIR/check_spill, removed after), its
+    table held to the stage's (one line) -> its raw rows."""
+    res, line = _step("count at 96M", out, lambda: range_recount(
+        rs, device, table, out / "check_spill", REFERENCE_BLOCK, RECOUNT_PARTS))
+    emit(dict(line, block_positions=REFERENCE_BLOCK, parts=RECOUNT_PARTS, **res))
+    if not res["table_equal"]:
+        raise RuntimeError("the count at 96M-position blocks differs from the stage's table")
+    return res["raw_rows"]
+
+
+def _stage_line(pl, name: str, extra: dict) -> dict:
+    rec = pl.stage_records.get(name, {})
+    return dict(extra, stage=name, stage_wall_s=rec.get("wall_s"),
+                device_peak_gib=None if rec.get("peak_gb") is None else round(rec["peak_gb"], 3),
+                host_peak_gb=round(rec.get("host_peak_gb", 0.0) * 2**30 / 1e9, 3))
+
+
+def run_rung(args, device) -> int:
+    from ..pipeline.run import Pipeline
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    if device.type == "cuda":
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True)
+        emit(dict(step="card", nvidia_smi=smi.stdout.strip()))
+    key = (args.genome_size, args.repeats, args.barcodes, args.whitelist_size, args.seed)
+    ref = REFERENCE.get(key)
+    from ..cli import build_parser
+
+    sim_args = build_parser().parse_args([
+        "simulate", "--out", str(out / "sim"), "--genome-size", str(args.genome_size),
+        "--repeats", str(args.repeats), "--barcodes", str(args.barcodes),
+        "--whitelist-size", str(args.whitelist_size), "--seed", str(args.seed)])
+    sim = simulate_step(sim_args, out / "sim", out)
+    rundir = out / "run"
+    rundir.mkdir(exist_ok=True)
+    rs = fastq_readset(out / "sim", rundir, out)
+
+    pl = Pipeline(rundir, device=device, resume=True)
+    ours = {"pairs": sim["pairs"]}
+    rs, line = _step("ingest", out, lambda: pl._stage("ingest", pl.stage_ingest, rs))
+    emit(_stage_line(pl, "ingest", dict(line, reads=rs.n_reads, lazy=bool(rs.is_lazy))))
+    through = STAGES.index(args.through)
+
+    (table, rs), line = _step("count", out, lambda: pl._stage(
+        "count", pl._count_with_cov_guard, rs))
+    crec = pl.stage_records["count"]
+    ours["kmers"] = int(table.n_valid)
+    emit(_stage_line(pl, "count", dict(
+        line, kmers=ours["kmers"], resumed_from_kmers_npz="blocks" not in crec,
+        **{k: crec.get(k) for k in ("block_positions", "blocks", "raw_rows", "partitions",
+                                    "spilled_blocks", "resumed_blocks", "oom_retries")})))
+    if through >= 1:
+        bg, line = _step("graph", out, lambda: pl._stage("graph", pl.stage_graph, table))
+        emit(_stage_line(pl, "graph", dict(line, edges=bg.n_edges,
+                                           kmers=int(table.n_valid))))
+    if through >= 2:
+        rp, line = _step("paths", out, lambda: pl._stage("paths", pl.stage_paths, bg, rs))
+        prec = pl.stage_records.get("paths", {})
+        emit(_stage_line(pl, "paths", dict(
+            line, reads=rs.n_reads, placed_perc=pl.stats.get("placed_perc"),
+            **{k: prec.get(k) for k in ("block_positions", "blocks", "oom_retries")})))
+    if args.check_96m:
+        ours["raw_rows_96m"] = (
+            recount_96m(rs, device, table, out) if ref and ref.get("kmers") != ours["kmers"]
+            else raw_rows_96m(rs, device, out))
+    if through >= 3:
+        del table
+        (bg2, _), line = _step("patch", out, lambda: pl._stage(
+            "patch", pl.stage_patch, bg, rp, rs))
+        # every valid table row is two oriented nodes of the rebuilt graph
+        ours["patch_kmers"] = int((np.asarray(bg2.node_edge) >= 0).sum()) // 2
+        emit(_stage_line(pl, "patch", dict(
+            line, gap_pairs=pl.stats.get("gap_pairs"), closures=pl.stats.get("gap_closures"),
+            rebuild_kmers=ours["patch_kmers"], edges=bg2.n_edges,
+            placed_perc=pl.stats.get("placed_perc"))))
+    compare = {}
+    for k, want in (ref or {}).items():
+        if k == "source":
+            continue
+        got = ours.get(k)
+        compare[k] = dict(reference=want, ours=got, result="not run" if got is None else (
+            "equal" if got == want else "differs"))
+    emit(dict(step="compare", rung=dict(zip(("genome_size", "repeats", "barcodes",
+                                             "whitelist_size", "seed"), key)),
+              source=(ref or {}).get("source"), compare=compare))
+    return 0
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    ap = argparse.ArgumentParser(prog="python -m supernova_tpu_torch.stats.rung")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--genome-size", type=int, required=True)
+    ap.add_argument("--repeats", type=int, required=True)
+    ap.add_argument("--barcodes", type=int, required=True)
+    ap.add_argument("--whitelist-size", type=int, required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--through", choices=STAGES, default="patch")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--check-96m", action="store_true")
+    args = ap.parse_args(argv)
+    from ..core.device import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:  # no card: no CPU fallback
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+    return run_rung(args, device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -124,6 +124,41 @@ def test_sort_matches_plain_thousands_of_tiles(dev, kind):
         assert torch.equal(k4.lex_argsort(*keys), k4.lex_argsort_plain(*keys)), (n_keys, kind)
 
 
+def largest_count_block(dev) -> int:
+    """The largest block the count's budget gives this card: its whole
+    memory free (count_block_positions)."""
+    total = torch.cuda.get_device_properties(dev).total_memory
+    return kcount.count_block_positions(dev, free_bytes=total)
+
+
+def test_kmer_extract_at_the_largest_count_block(dev):
+    """K1 over the positions of the largest block the card's budget plans:
+    64-bit positions and a grid of millions of blocks, equal to its twin."""
+    torch.cuda.empty_cache()
+    n = largest_count_block(dev)
+    g = torch.Generator(device=dev).manual_seed(31)
+    codes = torch.randint(0, 4, (n + 128,), dtype=torch.int32, device=dev, generator=g)
+    for a, b in zip(k1.sliding_words_cuda(codes, n), k1.sliding_words_plain(codes, n)):
+        assert a.shape == (n,) and torch.equal(a, b)
+
+
+def test_sort_at_the_largest_count_block(dev):
+    """K4, whose rows carry 32-bit indices (n < 2^31), at the sort rows of
+    the largest block the card's budget plans (a mixed block sorts every
+    position) by 4 keys: the permutation equals its twin's exactly.  The
+    budget is capped below 2^31 (kcount.MAX_BLOCK_POSITIONS)."""
+    torch.cuda.empty_cache()
+    n = largest_count_block(dev)
+    assert n <= kcount.MAX_BLOCK_POSITIONS < 1 << 31 and n > kcount.BLOCK_POSITIONS
+    g = torch.Generator(device=dev).manual_seed(32)
+    keys = [torch.randint(0, 1 << 32, (n,), dtype=torch.int64, device=dev, generator=g)
+            for _ in range(3)]
+    keys.append(torch.randint(0, 8, (n,), dtype=torch.int64, device=dev, generator=g))
+    got = k4.lex_argsort_cuda(*keys)
+    torch.cuda.empty_cache()
+    assert torch.equal(got, k4.lex_argsort_plain(*keys))
+
+
 def test_sorts_back_to_back(dev):
     """Sorts of different n one after another: a look-back status word or a
     tile counter left over from the previous sort would misplace rows."""
@@ -316,12 +351,22 @@ def blocked_readset():
     ), wl)
 
 
+def pin_blocks(monkeypatch, positions):
+    """The count's and the pather's block budgets at `positions` on every
+    device (the card's own budget would take the readset in one block)."""
+    from supernova_tpu_torch.align import pather
+
+    monkeypatch.setattr(kcount, "count_block_positions", lambda device, free_bytes=None: positions)
+    monkeypatch.setattr(pather, "path_block_positions",
+                        lambda device, bg, free_bytes=None: positions)
+
+
 def test_blocked_slice_cuda_equals_cpu(dev, tmp_path, monkeypatch):
     """~360 kb of reads cut into >= 3 count blocks: the blocked count, the
     device merge and the blocked pather on CUDA give the CPU's kmers.npz,
     graph.npz and ReadPaths, with every kernel launched."""
     rs = blocked_readset()
-    monkeypatch.setattr(kcount, "BLOCK_POSITIONS", 100_000)
+    pin_blocks(monkeypatch, 100_000)
     kernels.reset_launch_counts()
     pg = Pipeline(tmp_path / "cuda", device="cuda")
     _, _, rg = pg.run_slice(rs)
@@ -372,7 +417,7 @@ def test_mixed_slice_cuda_equals_cpu(dev, tmp_path, monkeypatch):
     from supernova_tpu_torch.pipeline.datasets import r1_trimmed
 
     rs = r1_trimmed(blocked_readset())
-    monkeypatch.setattr(kcount, "BLOCK_POSITIONS", 100_000)
+    pin_blocks(monkeypatch, 100_000)
     kernels.reset_launch_counts()
     pg = Pipeline(tmp_path / "cuda", device="cuda")
     tg, _, rg = pg.run_slice(rs)

@@ -23,7 +23,8 @@ from supernova_tpu_torch.pipeline.run import Pipeline
 
 from tests.test_torch_blocked import MAX_POS, blocked_readset
 
-META_KEYS = {"n_blocks", "pad_pos", "pad_rd", "n_reads", "min_freq", "min_bc"}
+# the reference's meta keys, and the block size a resume takes
+META_KEYS = {"n_blocks", "pad_pos", "pad_rd", "n_reads", "min_freq", "min_bc", "block_positions"}
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -188,7 +188,12 @@ the genome's closures, the one-device glue's partition, overflow 0.
 [bench] (after 11, nothing else on the card): `python -m
 supernova_tpu_torch bench` in a fresh process at the reference's sizes,
 both JSON lines parsed, the count line first; beside it the same without a
-visible card, which must exit nonzero and print no result.  Every
+visible card, which must exit nonzero and print no result.  [fleet]
+(after [bench]): on a host of two or more cards, stats/fleet.py's 2 x 1
+NCCL fleet on the full slice (count, graph, paths, patch and supergraph
+across processes), every process's checkpoints equal to one card's; on
+one card a line saying
+it was not run and why.  Every
 phase_slice run prints each stage's mem_peak_host_<stage>_gb.
 Each phase's wall is printed as a [time] line.  Then one JSON line with
 the kernels (launches from the main path, the fastq run's run(),
@@ -1150,6 +1155,41 @@ def phase_bench(torch):
 
 # 10x lanes the genome's FASTQs are written as, one process each
 LANES = 8
+
+
+def phase_fleet(torch, smi):
+    """[fleet]: on a host of two or more cards, `python -m
+    supernova_tpu_torch.stats.fleet --dataset FULL --locals 1` in a fresh
+    process: the full slice's count, graph, paths, patch and supergraph on
+    one card, then over a fleet of 2 processes x 1 card joined over NCCL
+    (the count's exchange, the build over the fleet's shard tables, the
+    pather and the closure glue over its flat mesh crossing the processes),
+    every process's checkpoints equal to the one card's; its exit code and
+    last line checked.  On one card, one line saying it was not run and
+    why."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[fleet] not run: this host has {cards} card and NCCL needs one card per "
+              "process, so the 2 x 1 fleet needs two (tests/test_torch_multiprocess.py's "
+              "NCCL tests and stats/fleet.py run it on a 4-card host)")
+        return
+    with tempfile.TemporaryDirectory() as d:
+        out = subprocess.run([sys.executable, "-m", "supernova_tpu_torch.stats.fleet", "--out", d,
+                              "--dataset", "FULL", "--locals", "1"],
+                             capture_output=True, text=True, timeout=900)
+    lines = [json.loads(x) for x in out.stdout.splitlines() if x.startswith("{")]
+    check(out.returncode == 0 and lines and lines[-1].get("ok"),
+          f"fleet: exit {out.returncode}: {out.stdout[-2000:]} {out.stderr[-2000:]}")
+    last = lines[-1]
+    check({"kmers.npz", "graph.npz", "paths.npz", "supergraph.npz"} <= set(last["files"])
+          and len(last["equal"]) == 2 * len(last["files"]) and all(last["equal"].values()),
+          f"fleet: outputs differ from one card's: {last['equal']}")
+    for x in lines:
+        if "stage" in x and x["stage"] != "ingest":
+            print(f"[fleet] {smi}: {x['role']} {x['stage']} {x['wall_s']:.3f} s, card peaks "
+                  f"{x['card_peak_gib']} GiB, {x['rows_out']} rows sent to the other process")
+    print(f"[fleet] 2 processes x 1 card over NCCL: {', '.join(last['files'])} equal to one "
+          "card's on both processes")
 
 
 def _simulate_and_write(root):
@@ -3108,6 +3148,7 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
     timed("graph sort", phase_graph_sort, torch, table.n_valid)
     del table
     timed("bench", phase_bench, torch)
+    timed("fleet", phase_fleet, torch, smi)
 
     timed("evaluate wait", report_evaluate, evaluate)
 

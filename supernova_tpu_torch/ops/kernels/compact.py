@@ -90,7 +90,8 @@ def compact(valid: torch.Tensor, *cols: torch.Tensor, fills=None):
     if valid.device.type == "cpu":
         _check_fills(cols, fills)
         return compact_plain(valid, *cols, fills=fills)
-    return compact_cuda(valid, *cols, fills=fills)
+    with torch.cuda.device(valid.device):  # the launch's card, where a process holds several
+        return compact_cuda(valid, *cols, fills=fills)
 
 
 compact.launches = 0

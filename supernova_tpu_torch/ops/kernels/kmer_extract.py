@@ -55,7 +55,8 @@ def sliding_words(codes: torch.Tensor, n: int):
         if codes.shape[0] < n + K - 1:
             raise ValueError(f"codes length {codes.shape[0]} < n + {K - 1}")
         return sliding_words_plain(codes, n)
-    return sliding_words_cuda(codes, n)
+    with torch.cuda.device(codes.device):  # the launch's card, where a process holds several
+        return sliding_words_cuda(codes, n)
 
 
 sliding_words.launches = 0

@@ -110,7 +110,8 @@ def run_reduce(w0, w1, w2, pk, min_freq: int, min_bc: int):
     CUDA tensor launches K3 (or raises)."""
     if w0.device.type == "cpu":
         return run_reduce_plain(w0, w1, w2, pk, min_freq, min_bc)
-    return run_reduce_cuda(w0, w1, w2, pk, min_freq, min_bc)
+    with torch.cuda.device(w0.device):  # the launch's card, where a process holds several
+        return run_reduce_cuda(w0, w1, w2, pk, min_freq, min_bc)
 
 
 run_reduce.launches = 0

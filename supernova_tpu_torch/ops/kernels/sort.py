@@ -122,7 +122,8 @@ def lex_argsort(*keys):
         raise ValueError(f"lex_argsort takes 1..{MAX_KEYS} keys, got {len(keys)}")
     if keys[0].device.type == "cpu":
         return lex_argsort_plain(*keys)
-    return lex_argsort_cuda(*keys)
+    with torch.cuda.device(keys[0].device):  # the launch's card, where a process holds several
+        return lex_argsort_cuda(*keys)
 
 
 lex_argsort.launches = 0

@@ -18,7 +18,11 @@ Environment contract (the reference's):
 
 A sharded value is a mesh.Sharded list of this process's shards' tensors;
 to_global/from_global/ensure_global/host_fetch/local_rows move between it
-and full host arrays, all-gathering over the group in a fleet.
+and full host arrays, all-gathering over the group in a fleet.  The
+fleet's ("host", "chip") mesh serves the hierarchical count; its flat
+mesh (mesh.flat) is the one "shard" axis over every process's shards that
+the flat count, the build, the pather, the glue, the links and the votes
+run on, as the reference's make_mesh spans the fleet.
 """
 from __future__ import annotations
 
@@ -55,6 +59,68 @@ def init_from_env(device="cpu") -> bool:
         world_size=n, rank=rank,
     )
     return True
+
+
+def fleet_all(flag: bool, device) -> bool:
+    """In a joined fleet, True only where every process's flag is (one
+    all_reduce on `device`: the current card for NCCL, the CPU for gloo),
+    so that every process takes the same branch into its collectives;
+    outside a fleet, the flag."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return bool(int(t))
+
+
+def free_port() -> int:
+    """A free TCP port on localhost, for a fleet's coordinator."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_fleet(argv: list, n_proc: int, local: int, env: dict | None = None, **popen) -> list:
+    """Start n_proc processes of argv on this host, joined by the SUPERNOVA_*
+    environment above (process 0 coordinates on a free localhost port;
+    `local` shards a process), over `env` (default: this process's) ->
+    their Popens (text mode; `popen` goes to each)."""
+    import subprocess
+
+    port = free_port()
+    base = dict(os.environ if env is None else env, SUPERNOVA_COORDINATOR=f"127.0.0.1:{port}",
+                SUPERNOVA_NUM_PROCESSES=str(n_proc), SUPERNOVA_LOCAL_DEVICES=str(local))
+    return [subprocess.Popen(argv, env=dict(base, SUPERNOVA_PROCESS_ID=str(pid)), text=True,
+                             **popen) for pid in range(n_proc)]
+
+
+def wait_fleet(procs: list, timeout: float) -> list:
+    """Wait for every process of spawn_fleet -> [(stdout, stderr)].  At the
+    timeout every process still running is killed (its returncode is then
+    negative), so that none of a deadlocked fleet outlives the call."""
+    import subprocess
+    import time
+
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 0.1)))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                outs.append(p.communicate())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
 
 
 def local_shards(device="cpu") -> int:
@@ -94,16 +160,31 @@ def to_global(mesh: Mesh, spec, arr: np.ndarray) -> Sharded:
 
 def from_global(x: Sharded) -> np.ndarray:
     """A sharded value -> the full host array (shards concatenated in mesh
-    order, each of its own length), on every process."""
+    order, each of its own length), on every process.  Every shard holds
+    one dtype and one row shape.  In a fleet the rows travel as bytes in two
+    all_gathers on the comm device: every shard's row count, then each
+    process's rows, padded to the longest process's."""
     parts = [p.cpu().numpy() for p in x]
     mesh = x.mesh
     if mesh.group is None:
         return np.concatenate(parts)
     import torch.distributed as dist
 
-    gathered = [None] * mesh.world
-    dist.all_gather_object(gathered, parts, group=mesh.group)
-    return np.concatenate([p for ps in gathered for p in ps])
+    dev = mesh.comm_device
+    dtype, tail = parts[0].dtype, parts[0].shape[1:]
+    row_bytes = dtype.itemsize * int(np.prod(tail, dtype=np.int64))
+    sizes = torch.tensor([len(p) for p in parts], dtype=torch.int64, device=dev)
+    all_sizes = [torch.empty_like(sizes) for _ in range(mesh.world)]
+    dist.all_gather(all_sizes, sizes, group=mesh.group)
+    counts = torch.stack(all_sizes).cpu().numpy()  # (world, n_local) rows
+    width = int(counts.sum(1).max()) * row_bytes
+    mine = np.zeros(width, np.uint8)
+    raw = np.concatenate([np.ascontiguousarray(p).reshape(-1).view(np.uint8) for p in parts])
+    mine[: len(raw)] = raw
+    gathered = [torch.empty(width, dtype=torch.uint8, device=dev) for _ in range(mesh.world)]
+    dist.all_gather(gathered, torch.from_numpy(mine).to(dev), group=mesh.group)
+    rows = [g.cpu().numpy()[: int(n.sum()) * row_bytes] for g, n in zip(gathered, counts)]
+    return np.concatenate(rows).view(dtype).reshape((-1,) + tuple(tail))
 
 
 def ensure_global(mesh: Mesh, spec, x):

@@ -18,9 +18,13 @@ semantics: only real rows move, each receiver gets its senders' rows in
 sender order, and a `capacity` bounds the rows one shard receives (the
 rows past it are dropped and counted).  Its destination sort is
 kcodec.lex_argsort, kernel K4 on the card.  In a multi-process fleet
-(parallel/dist.py) the mesh holds this process's row of the host axis; an
-exchange over the host axis then runs over
-torch.distributed.all_to_all_single, every other collective in process.
+(parallel/dist.py) the mesh's `devices` are this process's shards (its row
+of the host axis) and every axis spans the fleet: an exchange packs the
+chunks for each other process, in (source, destination) shard order, into
+torch.distributed.all_to_all_single calls on the process's comm device,
+so a receiver still gets its senders in global mesh order; the reductions
+(psum, pmax, any, tensor_sum) and all_gather add an all_reduce or
+all_gather over the group.
 """
 from __future__ import annotations
 
@@ -33,6 +37,10 @@ from ..ops.kernels.sort import lex_argsort
 AXIS = "shard"
 HOST_AXIS = "host"  # slow fabric axis of the 2-D mesh (processes in a fleet)
 CHIP_AXIS = "chip"  # fast fabric axis of the 2-D mesh (shards in a process)
+
+# what this process's exchanges sent to other processes: rows, bytes and
+# the exchanges that crossed processes (stats/fleet.py reads it per stage)
+TRAFFIC = {"rows_out": 0, "bytes_out": 0, "exchanges": 0}
 
 
 class Sharded(list):
@@ -88,50 +96,98 @@ class Mesh:
             return [j * chips + c for j in range(hosts)]
         raise ValueError(f"axis {axis!r} of a 2-D mesh is {HOST_AXIS!r} or {CHIP_AXIS!r}")
 
+    def process_of(self, g: int) -> int:
+        """The process (host-axis row of a fleet) that holds global shard g."""
+        return g // self.n_local
+
     def crosses_processes(self, axis: str) -> bool:
-        return self.group is not None and axis == HOST_AXIS
+        """True when some group along `axis` spans more than one process:
+        its exchanges then go over torch.distributed."""
+        if self.group is None:
+            return False
+        return any(len({self.process_of(m) for m in self.members(g, axis)}) > 1
+                   for g in range(self.size))
+
+    @property
+    def comm_device(self) -> torch.device:
+        """The device this process's collectives run on (its first shard's:
+        the card init_from_env made current for NCCL, the CPU for gloo)."""
+        return self.devices[0]
 
     # ------------------------------------------------------------ collectives
 
     def all_to_all(self, send, axis: str = AXIS):
         """send[i][j]: this process's shard i's tensor for member j of its
         group along `axis` -> recv[i][j]: shard i's tensor from member j, on
-        shard i's device.  Rows of any count (an exact-size exchange)."""
-        if self.crosses_processes(axis):
-            return [self._all_to_all_processes(row) for row in send]
-        if self.group is not None and axis != CHIP_AXIS:
-            raise NotImplementedError(
-                "a fleet mesh exchanges across processes over its host axis only "
-                "(sharded_count_hier); the other sharded steps run on a mesh of one process")
+        shard i's device.  Rows of any count (an exact-size exchange); every
+        chunk has one dtype and one row shape.  Shards of one process
+        exchange in process; chunks for other processes go over
+        torch.distributed (_exchange_processes)."""
         local = {self.global_index(i): i for i in range(self.n_local)}
+        remote = self._exchange_processes(send, axis) if self.crosses_processes(axis) else {}
         recv = []
         for i in range(self.n_local):
             g = self.global_index(i)
             grp = self.members(g, axis)
             me = grp.index(g)
-            recv.append([send[local[src]][me].to(self.devices[i]) for src in grp])
+            recv.append([send[local[src]][me].to(self.devices[i]) if src in local
+                         else remote[src, g].to(self.devices[i]) for src in grp])
         return recv
 
-    def _all_to_all_processes(self, chunks):
-        """One shard's chunks to the same chip of every process (the host
-        axis of a fleet) over torch.distributed, uneven sizes included."""
+    def _pairs(self, src_proc: int, dst_proc: int, axis: str) -> list:
+        """The (source, destination) global shard pairs of one group along
+        `axis` from process src_proc to process dst_proc, in (source,
+        destination) order: the order both ends pack and unpack them in."""
+        return [(s, d) for s in range(src_proc * self.n_local, (src_proc + 1) * self.n_local)
+                for d in self.members(s, axis) if self.process_of(d) == dst_proc]
+
+    def _exchange_processes(self, send, axis: str) -> dict:
+        """The chunks of send whose destination lives in another process,
+        over two all_to_all_single calls on the comm device: the sizes, then
+        the rows, with uneven splits (zero-row chunks included) -> {(source,
+        destination): received chunk} for the chunks sent to this process."""
         import torch.distributed as dist
 
-        dev = chunks[0].device
-        tail = chunks[0].shape[1:]
+        dev = self.comm_device
+        local = {self.global_index(i): i for i in range(self.n_local)}
+        first = send[0][0]
+        dtype, tail = first.dtype, tuple(first.shape[1:])
         width = 1
         for s in tail:
             width *= s
+        out_pairs = [self._pairs(self.rank, p, axis) if p != self.rank else []
+                     for p in range(self.world)]
+        in_pairs = [self._pairs(p, self.rank, axis) if p != self.rank else []
+                    for p in range(self.world)]
+        chunks = []
+        for pairs in out_pairs:
+            for s, d in pairs:
+                grp = self.members(s, axis)
+                chunks.append(send[local[s]][grp.index(d)])
         sizes = torch.tensor([c.shape[0] for c in chunks], dtype=torch.int64, device=dev)
-        got = torch.empty_like(sizes)
-        dist.all_to_all_single(got, sizes, group=self.group)
-        got_l = got.tolist()
-        out = torch.empty((sum(got_l) * width,), dtype=chunks[0].dtype, device=dev)
-        dist.all_to_all_single(out, torch.cat([c.reshape(-1) for c in chunks]),
-                               output_split_sizes=[n * width for n in got_l],
-                               input_split_sizes=[c.shape[0] * width for c in chunks],
+        got = torch.empty(sum(len(p) for p in in_pairs), dtype=torch.int64, device=dev)
+        dist.all_to_all_single(got, sizes, output_split_sizes=[len(p) for p in in_pairs],
+                               input_split_sizes=[len(p) for p in out_pairs], group=self.group)
+        got_l = got.tolist()  # a synchronizing read: the rows' splits come from it
+        rows_in, k = [], 0
+        for pairs in in_pairs:
+            rows_in.append(sum(got_l[k:k + len(pairs)]))
+            k += len(pairs)
+        rows_out, k = [], 0
+        for pairs in out_pairs:
+            rows_out.append(sum(c.shape[0] for c in chunks[k:k + len(pairs)]))
+            k += len(pairs)
+        flat = (torch.cat([c.reshape(-1).to(dev) for c in chunks]) if chunks
+                else torch.empty(0, dtype=dtype, device=dev))
+        TRAFFIC["rows_out"] += sum(rows_out)
+        TRAFFIC["bytes_out"] += flat.numel() * flat.element_size()
+        TRAFFIC["exchanges"] += 1
+        out = torch.empty(sum(rows_in) * width, dtype=dtype, device=dev)
+        dist.all_to_all_single(out, flat, output_split_sizes=[n * width for n in rows_in],
+                               input_split_sizes=[n * width for n in rows_out],
                                group=self.group)
-        return list(out.reshape((-1,) + tuple(tail)).split(got_l))
+        parts = out.reshape((-1,) + tail).split(got_l)
+        return dict(zip([pair for pairs in in_pairs for pair in pairs], parts))
 
     def all_gather(self, xs):
         """Every shard's (n,) vector -> on each shard, the (size, n) stack
@@ -140,7 +196,7 @@ class Mesh:
         return [full.to(d) for d in self.devices]
 
     def _gather_all(self, xs) -> torch.Tensor:
-        stack = torch.stack([x.to(self.devices[0]) for x in xs])
+        stack = torch.stack([x.to(self.comm_device) for x in xs])
         if self.group is None:
             return stack
         import torch.distributed as dist
@@ -149,27 +205,43 @@ class Mesh:
         dist.all_gather(parts, stack, group=self.group)
         return torch.cat(parts)
 
-    def psum(self, values) -> int:
-        """Sum over every shard of the mesh of per-shard integers."""
-        total = torch.tensor([int(sum(int(v) for v in values))], dtype=torch.int64,
-                             device=self.devices[0])
+    def _reduce_int(self, value: int, op) -> int:
+        total = torch.tensor([int(value)], dtype=torch.int64, device=self.comm_device)
         if self.group is not None:
             import torch.distributed as dist
 
-            dist.all_reduce(total, group=self.group)
+            dist.all_reduce(total, op=op, group=self.group)
         return int(total)
+
+    def psum(self, values) -> int:
+        """Sum over every shard of the mesh of per-shard integers."""
+        import torch.distributed as dist
+
+        return self._reduce_int(sum(int(v) for v in values), dist.ReduceOp.SUM)
+
+    def pmax(self, values) -> int:
+        """Largest over every shard of the mesh of per-shard integers."""
+        import torch.distributed as dist
+
+        return self._reduce_int(max(int(v) for v in values), dist.ReduceOp.MAX)
 
     def tensor_sum(self, xs):
         """Every shard's tensor (one shape and dtype) -> on each shard's
         device, their sum over the mesh (jax.lax.psum inside shard_map).
-        Shards summed in mesh order; shards on one device share one tensor."""
-        if self.group is not None:
-            raise NotImplementedError(
-                "a fleet mesh sums tensors only within one process; the steps that "
-                "need it run on a mesh of one process")
-        total = xs[0].to(self.devices[0], copy=True)
+        In process the shards are summed in mesh order (shards on one device
+        share one tensor); a fleet then sums the processes' totals with
+        all_reduce, whose order is the backend's.  So a fleet sums integer
+        counts only (exact in any order) and refuses a floating dtype."""
+        if self.group is not None and (xs[0].is_floating_point() or xs[0].is_complex()):
+            raise TypeError(f"a fleet mesh sums integer tensors only, not {xs[0].dtype}: "
+                            "all_reduce's order is not the mesh's")
+        total = xs[0].to(self.comm_device, copy=True)
         for x in xs[1:]:
             total += x.to(total.device)
+        if self.group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(total, group=self.group)
         return [total.to(d) for d in self.devices]
 
     def any(self, flags) -> bool:

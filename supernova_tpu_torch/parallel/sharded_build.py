@@ -150,20 +150,31 @@ def sharded_links(mesh: Mesh, tables, cap: int, steps: int):
             for n, p, h, d, t in zip(nxt_l, prv_l, ptr, dist, tables)]
 
 
-def compact_links(tables, links6):
+def _all_shards(mesh: Mesh, xs) -> np.ndarray:
+    """Every shard's tensor of one length -> their host concatenation in
+    mesh order: gathered over the fleet (dist.host_fetch), or this
+    process's shards where they are all of the mesh."""
+    from .dist import host_fetch
+
+    return host_fetch(Sharded(list(xs), mesh))
+
+
+def compact_links(mesh: Mesh, tables, links6):
     """Host: drop the per-shard padding, sort the rows, remap node ids.
-    -> (merged KmerTable, Links) as host-ordered numpy-built tensors equal
-    to the single-device pair; the table's row count is trim_table's
-    (geom_bucket), the masks the distributed recompute's."""
-    n_dev = len(tables)
+    Every shard's table and links are gathered first (over the fleet in a
+    multi-process mesh, as the reference's host_fetch), so every process
+    gets the same pair.  -> (merged KmerTable, Links) as host-ordered
+    numpy-built tensors equal to the single-device pair; the table's row
+    count is trim_table's (geom_bucket), the masks the distributed
+    recompute's."""
+    n_dev = mesh.size
     cap = tables[0].count.shape[0]
-    nv = np.array([int(t.n_valid) for t in tables], np.int64)
-    h = lambda x: x.cpu().numpy()
+    nv = _all_shards(mesh, (t.n_valid.reshape(1) for t in tables)).astype(np.int64)
     shard = np.repeat(np.arange(n_dev), nv)
     row = np.concatenate([np.arange(n) for n in nv]) if nv.sum() else np.zeros(0, np.int64)
     old_rows = shard * cap + row
-    stack = lambda get: np.concatenate([h(get(t))[:n] for t, n in zip(tables, nv)])
-    a, b, c = (stack(lambda t, j=j: t.words[j]) for j in range(3))
+    full = lambda get: _all_shards(mesh, (get(t) for t in tables))
+    a, b, c = (full(lambda t, j=j: t.words[j])[old_rows] for j in range(3))
     order = np.lexsort((c, b, a))
     n = len(order)
     m = dbuild.geom_bucket(max(n, 1), PAD_MULTIPLE)
@@ -172,7 +183,7 @@ def compact_links(tables, links6):
     new_of_old[old_rows] = np.arange(n)
 
     nxt, prv, head, dist, new_l, new_r = (
-        np.concatenate([h(l[j]) for l in links6]) for j in range(6))
+        _all_shards(mesh, (l[j] for l in links6)) for j in range(6))
     old_u = (2 * old_rows[:, None] + np.array([0, 1])[None, :]).reshape(-1)
 
     def remap(vals):
@@ -197,7 +208,6 @@ def compact_links(tables, links6):
         out[:n] = arr.reshape(-1)[old_rows]
         return out
 
-    full = lambda get: np.concatenate([h(get(t)) for t in tables])
     words = [np.full(m, kc.SENTINEL, np.int64) for _ in range(3)]
     for w, x in zip(words, (a, b, c)):
         w[:n] = x[order]
@@ -206,11 +216,12 @@ def compact_links(tables, links6):
     return host, links
 
 
-def trim_shard_tables(tables):
+def trim_shard_tables(mesh: Mesh, tables):
     """Every shard's table cut or padded to one shared row count,
-    geom_bucket(the largest shard's n_valid): the distributed phase's
-    global node ids are shard * cap + row."""
-    cap = dbuild.geom_bucket(max(max(int(t.n_valid) for t in tables), 1), PAD_MULTIPLE)
+    geom_bucket(the largest n_valid of any shard of the mesh, across the
+    fleet in a multi-process mesh): the distributed phase's global node
+    ids are shard * cap + row, and every process must agree on them."""
+    cap = dbuild.geom_bucket(max(mesh.pmax(int(t.n_valid) for t in tables), 1), PAD_MULTIPLE)
 
     def fit(x, fill):
         out = torch.full((cap,), fill, dtype=x.dtype, device=x.device)
@@ -221,18 +232,18 @@ def trim_shard_tables(tables):
     out = [KmerTable(W3(*(fit(w, kc.SENTINEL) for w in t.words)), fit(t.count, 0),
                      fit(t.nbc, 0), fit(t.left_mask, 0), fit(t.right_mask, 0), t.n_valid)
            for t in tables]
-    return Sharded(out, tables.mesh) if isinstance(tables, Sharded) else out
+    return Sharded(out, mesh)
 
 
 def sharded_build_graph(mesh: Mesh, tables, device=None) -> dgraph.BaseGraph:
-    """Sharded tables -> BaseGraph: the distributed links, then the
-    single-device materialization on `device` (the first shard's by
-    default)."""
-    tables = trim_shard_tables(tables)
+    """Sharded tables (this process's shards of `mesh`) -> BaseGraph: the
+    distributed links, then the single-device materialization on `device`
+    (the first shard's by default), on every process of a fleet."""
+    tables = trim_shard_tables(mesh, tables)
     cap = tables[0].count.shape[0]
     steps = int(math.ceil(math.log2(max(2 * mesh.size * cap, 2)))) + 1
     links6 = sharded_links(mesh, tables, cap, steps)
-    (words, count, nbc, lm, rm, n), links = compact_links(tables, links6)
+    (words, count, nbc, lm, rm, n), links = compact_links(mesh, tables, links6)
     dev = torch.device(device) if device is not None else mesh.devices[0]
     t = lambda a, dt=torch.int64: torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
     table = KmerTable(W3(*(t(w) for w in words)), t(count, torch.int32), t(nbc, torch.int32),

@@ -70,10 +70,12 @@ def _reduce(rows: torch.Tensor, min_freq: int, min_bc: int) -> KmerTable:
 
 def sharded_count(mesh: Mesh, inputs, capacity: int, min_freq: int = MIN_FREQ,
                   min_bc: int = MIN_BC):
-    """Multi-shard counting step over a 1-D mesh: `inputs` are the shards'
-    prepare_reads dicts (split_readset) -> (per-shard KmerTables, per-shard
-    overflow: rows past `capacity`, rounded up to a multiple of the shard
-    count as in the reference).  The reference's _sharded_count_local body,
+    """Multi-shard counting step over a 1-D mesh (a fleet's flat mesh too,
+    whose exchange crosses the processes): `inputs` are this process's
+    shards' prepare_reads dicts (split_readset) -> (its per-shard
+    KmerTables, its per-shard overflow: rows past `capacity`, rounded up to
+    a multiple of the shard count as in the reference; mesh.psum totals
+    it).  The reference's _sharded_count_local body,
     every shard a step at a time: extract, route by kmer hash, reduce."""
     n_dev = mesh.size
     capacity = -(-capacity // n_dev) * n_dev

@@ -9,8 +9,10 @@ shards the dictionary itself by kmer hash (`shard_dictionary`), so no shard
 holds all of it: `sharded_path_vs` routes each shard's query kmers to their
 owner (mesh.exchange), answers them there with a shard-local merge join,
 and returns the answers (give_back).  Per-read results equal
-path_readset's either way.  Left out: split_for_pathing's shape-bucket
-padding (each shard's block keeps its own length).
+path_readset's either way.  On a fleet's flat mesh each process paths
+its own shards' reads and gather_paths gathers every read's path onto
+every process.  Left out: split_for_pathing's shape-bucket padding (each
+shard's block keeps its own length).
 """
 from __future__ import annotations
 
@@ -119,11 +121,18 @@ def sharded_path_vs(mesh: Mesh, dict_shards, from_v, to_v, edge_kmers, inputs,
 
 
 def gather_paths(parts, blocks) -> ReadPaths:
-    """Per-shard ReadPaths -> one ReadPaths of the readset's reads, in read
+    """Per-shard ReadPaths (this process's shards of the mesh) and each
+    shard's read range -> one ReadPaths of the readset's reads, in read
     order (each shard's first n rows of its block), on the first shard's
-    device."""
-    dev = parts[0].edges.device
-    return ReadPaths(*(torch.cat([getattr(p, f)[: hi - lo].to(dev)
-                                  for p, (lo, hi) in zip(parts, blocks)])
-                       for f in ReadPaths._fields))
+    device: gathered over the fleet in a multi-process mesh, so that every
+    process holds every read's path, as the reference's host_fetch."""
+    from .dist import host_fetch
 
+    dev = parts[0].edges.device
+    if parts.mesh.group is None:
+        return ReadPaths(*(torch.cat([getattr(p, f)[: hi - lo].to(dev)
+                                      for p, (lo, hi) in zip(parts, blocks)])
+                           for f in ReadPaths._fields))
+    return ReadPaths(*(torch.from_numpy(host_fetch(Sharded(
+        [getattr(p, f)[: hi - lo] for p, (lo, hi) in zip(parts, blocks)], parts.mesh))).to(dev)
+        for f in ReadPaths._fields))

@@ -47,13 +47,15 @@ def sharded_vote_matrix(
     mesh, edge_bubble, edge_sign, read_edge_sh, read_bc_sh,
     n_bubbles: int, n_mols: int,
 ):
-    """Accumulate the phasing support matrix over the mesh's shards (one
-    process).
+    """Accumulate the phasing support matrix over the mesh's shards (in a
+    fleet, every process's: each scatters its own shards' rows and gets
+    the whole sum).
 
     edge_bubble: (E,) int32, bubble index of each D-edge or -1;
     edge_sign: (E,) int32, +1 for arm0 edges, -1 for arm1, 0 otherwise;
     read_edge_sh/read_bc_sh: (n_dev, rows) shards of per-read vote rows
-    (-1 padded; one row per read placed on an arm edge; split_votes).
+    (-1 padded; one row per read placed on an arm edge; split_votes), all
+    of the mesh's on every process.
     -> (n_bubbles, n_mols) numpy int32, the sum over every shard."""
     eb_np = np.asarray(edge_bubble, np.int64)
     es_np = np.asarray(edge_sign, np.int64)
@@ -61,8 +63,9 @@ def sharded_vote_matrix(
     for i, d in enumerate(mesh.devices):
         if d not in on:
             on[d] = (torch.from_numpy(eb_np).to(d), torch.from_numpy(es_np).to(d))
-        re = torch.from_numpy(np.asarray(read_edge_sh[i], np.int64)).to(d)
-        rb = torch.from_numpy(np.asarray(read_bc_sh[i], np.int64)).to(d)
+        g = mesh.global_index(i)
+        re = torch.from_numpy(np.asarray(read_edge_sh[g], np.int64)).to(d)
+        rb = torch.from_numpy(np.asarray(read_bc_sh[g], np.int64)).to(d)
         mats.append(_votes_local(re, rb, *on[d], n_bubbles, n_mols))
     return mesh.tensor_sum(mats)[0].cpu().numpy()
 

@@ -126,21 +126,28 @@ def bc_link_triples(bc, item, cap: int = 16, out_cap: int | None = None,
 def sharded_bc_links(mesh, bc_shards, item_shards, cap: int = 16,
                      cap_rows: int | None = None, out_cap: int = 4096,
                      min_shared: int = 1, use_ragged: bool = False, info=None):
-    """Barcode-link triples over the mesh's shards (one process).
+    """Barcode-link triples over the mesh's shards (in a fleet, every
+    process's: each takes its own shards' rows and gets every triple).
 
     bc_shards/item_shards: (n_dev, rows) SENT-padded (split_incidence), or
-    one id column per shard.  cap_rows bounds the rows a shard receives in
-    each exchange (none by default; rows past it are dropped and counted).
+    one id column per shard of the mesh (every process holds them all).
+    cap_rows bounds the rows a shard receives in each exchange (none by
+    default; rows past it are dropped and counted).
     out_cap is accepted and not applied (the reference keeps at most
     out_cap triples a shard); the exchange is always ragged, so use_ragged
     is accepted and ignored.  `info` (a dict) receives `dropped` (rows a
-    shard dropped over both exchanges), `pair_rows` (the pairs generated)
-    and `local_rows` (the pre-reduced pairs sent to their owners).
+    shard dropped over both exchanges, this process's shards),
+    `pair_rows` (the pairs generated) and `local_rows` (the pre-reduced
+    pairs sent to their owners), both summed over the mesh.
     -> (i1, i2, shared) int64 numpy arrays, sorted by (i1, i2)."""
+    from .dist import host_fetch
+    from .mesh import Sharded
+
     n = mesh.size
     cols, keys = [], []
     for i, d in enumerate(mesh.devices):
-        bc, it = _rows(bc_shards[i], d), _rows(item_shards[i], d)
+        g = mesh.global_index(i)
+        bc, it = _rows(bc_shards[g], d), _rows(item_shards[g], d)
         real = bc != int(SENT)  # pad rows go nowhere
         bc, it = bc[real], it[real]
         cols.append(torch.stack([bc, it], 1))
@@ -162,11 +169,11 @@ def sharded_bc_links(mesh, bc_shards, item_shards, cap: int = 16,
     for g in recv:
         o1, o2, tot = _reduce_pairs(*(g[:, j].contiguous() for j in range(3)))
         o1, o2, tot, _ = _filter(o1, o2, tot, min_shared)
-        out.append(torch.stack([o1, o2, tot], 1).cpu())
+        out.append(torch.stack([o1, o2, tot], 1))
     if info is not None:
         info.update(dropped=[a + b for a, b in zip(dropped_bc, dropped_pairs)],
-                    pair_rows=pair_rows, local_rows=local_rows)
-    i1, i2, s = torch.cat(out).numpy().T
+                    pair_rows=mesh.psum([pair_rows]), local_rows=mesh.psum([local_rows]))
+    i1, i2, s = host_fetch(Sharded(out, mesh)).T
     order = np.lexsort((i2, i1))
     return i1[order], i2[order], s[order]
 

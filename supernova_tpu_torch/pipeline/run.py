@@ -95,6 +95,7 @@ from ..out import fasta as fout
 from ..out import gfa as ogfa
 from ..out import pseudohap as oph
 from ..out import superfiles as osf
+from ..parallel.dist import fleet_all
 from ..stats import gems as sgems
 from ..stats import histograms as hist
 from ..stats.logger import StatLogger, n50
@@ -173,6 +174,14 @@ class Pipeline:
         (run.py:99-110)."""
         return self.orch.run_stage(name, lambda: self._stage(name, fn, *a, **kw))
 
+    def _resumes(self, ck: Path, valid: bool = True) -> bool:
+        """Whether a stage reloads its checkpoint ck (valid: its own checks
+        passed) under resume=True.  In a joined fleet every process decides
+        together (fleet_all): the stage's work crosses the processes, so a
+        process that reloaded while another recomputed would leave the
+        other waiting in a collective."""
+        return fleet_all(self.resume and ck.exists() and valid, self.device)
+
     def _stage(self, name, fn, *a, **kw):
         """Run one stage under the stage timer, note the kernel launches
         made in it (the record's "launches") and persist the stats."""
@@ -229,7 +238,7 @@ class Pipeline:
         table, rs = self._timed("count", self._count_with_cov_guard, rs)
         bg = self._timed("graph", self.stage_graph, table)
         del table
-        if self.resume and (self.outdir / "graph.patched.npz").exists():
+        if self._resumes(self.outdir / "graph.patched.npz"):
             rp = None  # the patch stage reloads the patched graph and its paths
         else:
             rp = self._timed("paths", self.stage_paths, bg, rs)
@@ -376,7 +385,7 @@ class Pipeline:
         record; the spills go once kmers.npz is written.  On resume,
         kmers.npz (the port's or the reference's) reloads onto the device."""
         ck = self.outdir / "kmers.npz"
-        if self.resume and ck.exists():
+        if self._resumes(ck):
             z = np.load(ck)
             w = z["words"]
             return convert.table_from_numpy(kcount.KmerTable(
@@ -384,10 +393,10 @@ class Pipeline:
                 z["right_mask"], z["n_valid"]), self.device)
         spill_dir = self.outdir / "count_spill"
         ndev = self._mesh_ndev()
-        if ndev and int(rs.offsets[-1]) > kcount.planned_block_positions(
-                rs, self.device, kcount.MIN_FREQ, kcount.MIN_BC, spill_dir):
+        if ndev and not fleet_all(int(rs.offsets[-1]) <= kcount.planned_block_positions(
+                rs, self.device, kcount.MIN_FREQ, kcount.MIN_BC, spill_dir), self.device):
             # the reference shards only a one-block readset (sharded +
-            # blocked is future work there too)
+            # blocked is future work there too); a fleet's processes agree
             log.info("count: readset exceeds one block; using the blocked path")
             ndev = 0
         if ndev:
@@ -421,11 +430,24 @@ class Pipeline:
     def _glue_mesh(self):
         """The mesh of the supergraph closure glue in multi-device mode
         (parallel/sharded_nucleate.py), else None."""
-        ndev = self._process_ndev()
-        if not ndev:
-            return None
-        from ..parallel.mesh import make_mesh
+        ndev = self._mesh_ndev()
+        return self._flat_mesh(ndev) if ndev else None
 
+    def _flat_mesh(self, ndev: int):
+        """The one-axis mesh of ndev shards that the pather and the glue run
+        on (and the flat count): in a joined fleet the flat mesh over every
+        process's shards (the reference's make_mesh spans the fleet), else
+        ndev shards of this process."""
+        from ..parallel.mesh import flat, make_mesh
+
+        if _fleet_world() > 1:
+            from ..parallel.dist import fleet_mesh
+
+            mesh = flat(fleet_mesh(self.device))
+            if mesh.size != ndev:
+                raise ValueError(f"the fleet holds {mesh.size} shards, not the {ndev} of "
+                                 f"multi_device={self.multi_device}")
+            return mesh
         return make_mesh(ndev, self.device)
 
     def _mesh_ndev(self) -> int:
@@ -442,20 +464,6 @@ class Pipeline:
         n = cards if self.device.type == "cuda" else 8
         return n if (self.multi_device and n > 1) else 0
 
-    def _process_ndev(self) -> int:
-        """Shards the pather and the closure glue run over: _mesh_ndev(),
-        but in a joined fleet only this process's own shards (0 for one).
-        The reference's mesh spans the fleet there; here only the count
-        crosses processes, and every process paths and glues the whole
-        readset on its own shards."""
-        ndev = self._mesh_ndev()
-        if ndev and _fleet_world() > 1:
-            from ..parallel.dist import local_shards
-
-            chips = local_shards(self.device)
-            return chips if chips > 1 else 0
-        return ndev
-
     def _count_sharded(self, rs: ReadSet, ndev: int):
         """Mesh count (parallel/sharded_count.py): reads data-parallel, kmer
         space hash-sharded; keeps the per-shard tables for the sharded
@@ -463,7 +471,7 @@ class Pipeline:
         so does this, and the count stage's record says which route ran
         (count_route "mesh" or "mesh_overflow", count_overflow)."""
         from ..parallel import sharded_count as psc
-        from ..parallel.mesh import flat, make_mesh, make_mesh2
+        from ..parallel.mesh import flat, make_mesh2
 
         rec = self.stage_records.setdefault("count", {})
         fleet = _fleet_world() > 1
@@ -481,10 +489,10 @@ class Pipeline:
             tables, ovf = psc.sharded_count_hier(mesh2, inputs, capacity=4 * nbl)
             total = ovf[0]  # every shard holds the mesh's total
         else:
-            mesh = make_mesh(ndev, self.device)
+            mesh = self._flat_mesh(ndev)
             inputs, nbl = psc.split_readset(rs, mesh)
             tables, ovf = psc.sharded_count(mesh, inputs, capacity=4 * nbl)
-            total = sum(ovf)
+            total = mesh.psum(ovf)
         del inputs
         rec.update(count_overflow=int(total), n_shards=ndev)
         if total > 0:
@@ -493,9 +501,9 @@ class Pipeline:
             self._shard_tables = None
             return kcount.count_readset(rs, self.device, info=rec)
         rec["count_route"] = "mesh"
-        # a fleet's shard tables live in several processes: its build runs
-        # on the merged table, on one device per process
-        self._shard_tables = None if fleet else (mesh, tables)
+        # in a fleet the shard tables live in several processes, and the
+        # build runs over all of them (sharded_build_graph on the flat mesh)
+        self._shard_tables = (mesh, tables)
         self.stats.log("n_shards", ndev, "count/build mesh devices", stage="count")
         merged = psc.merge_shard_tables(tables, self.device)
         return kcount.recompute_adjacencies(dbuild.trim_table(merged))
@@ -532,7 +540,7 @@ class Pipeline:
 
     def stage_graph(self, table: kcount.KmerTable) -> dgraph.BaseGraph:
         ck = self.outdir / "graph.npz"
-        if self.resume and ck.exists():
+        if self._resumes(ck):
             return dgraph.BaseGraph.load(ck)
         if self._shard_tables is not None:
             # distributed unipath build over the hash-sharded tables
@@ -559,20 +567,20 @@ class Pipeline:
         pather's counts and the host seconds of rescue (rescue_s) and
         extend (extend_s)."""
         ck = self.outdir / "paths.npz"
-        if self.resume and ck.exists():
-            z = np.load(ck)
-            # the same reads on a graph of as many edges
-            if ("n_edges" in z and int(z["n_edges"]) == bg.n_edges
-                    and len(z["zip_plen"]) == rs.n_reads):
-                edges, plen, offset = pathzip.load_zipped(z, bg)
-                t = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64)).to(self.device)
-                zero = torch.zeros(rs.n_reads, dtype=torch.int64, device=self.device)
-                rp = pather.ReadPaths(t(edges), t(plen), t(offset), zero, zero.to(torch.bool))
-                self._write_ebcx(edges, plen, rs, bg)
-                return rp
+        z = np.load(ck) if self.resume and ck.exists() else None
+        # the same reads on a graph of as many edges
+        if self._resumes(ck, z is not None and "n_edges" in z and int(z["n_edges"]) == bg.n_edges
+                         and len(z["zip_plen"]) == rs.n_reads):
+            edges, plen, offset = pathzip.load_zipped(z, bg)
+            t = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64)).to(self.device)
+            zero = torch.zeros(rs.n_reads, dtype=torch.int64, device=self.device)
+            rp = pather.ReadPaths(t(edges), t(plen), t(offset), zero, zero.to(torch.bool))
+            self._write_ebcx(edges, plen, rs, bg)
+            return rp
         rec = self.stage_records.setdefault("paths", {})
-        ndev = self._process_ndev()
-        if ndev and int(rs.offsets[-1]) > pather.path_block_positions(self.device, bg):
+        ndev = self._mesh_ndev()
+        if ndev and not fleet_all(
+                int(rs.offsets[-1]) <= pather.path_block_positions(self.device, bg), self.device):
             ndev = 0  # the blocked single-device pather, as the reference's
         if ndev:
             rp = self._path_sharded(bg, rs, ndev)
@@ -604,17 +612,17 @@ class Pipeline:
         per read equal to the single-device pather.  The dictionary is
         replicated on every shard below PATH_VS_DICT_ROWS rows and
         hash-sharded above (no shard holds all of it; lookups go to the
-        owner shard)."""
+        owner shard).  In a fleet the mesh spans every process's shards, and
+        every process gets every read's path."""
         from ..parallel import sharded_path as psp
-        from ..parallel.mesh import make_mesh
 
-        mesh = make_mesh(ndev, self.device)
+        mesh = self._flat_mesh(ndev)
         inputs, blocks = psp.split_for_pathing(rs, mesh)
         da = bg.device_arrays(mesh.devices[0])
         value_shard = int(bg.kmer_words.shape[0]) > PATH_VS_DICT_ROWS
         if value_shard:
             shards = psp.shard_dictionary(mesh, da["words"], da["node_edge"], da["node_pos"])
-            nbl = max(int(i["pos_read"].shape[0]) for i in inputs)
+            nbl = mesh.pmax(int(i["pos_read"].shape[0]) for i in inputs)
             parts = psp.sharded_path_vs(mesh, shards, da["from_v"], da["to_v"], da["edge_kmers"],
                                         inputs, capacity=2 * nbl)
         else:
@@ -711,10 +719,11 @@ class Pipeline:
 
         ck = self.outdir / "supergraph.npz"
         dck = self.outdir / "dpaths.npz"
+        got = None
         if self.resume and ck.exists() and dck.exists():
             got = self._resume_supergraph(bg, rs, ck, dck)
-            if got is not None:
-                return got
+        if self._resumes(ck, got is not None):
+            return got
         log_sg = lambda name, value, *a, **kw: self.stats.log(
             name, value, *a, stage="supergraph", **kw)
         dup = adups.mark_dups(edges, plen, offset, rs.bc)
@@ -1417,7 +1426,7 @@ class Pipeline:
         (rebuild_launches) and the host seconds of the graph.patched.npz
         write (save_s)."""
         ck = self.outdir / "graph.patched.npz"
-        if self.resume and ck.exists():
+        if self._resumes(ck):
             bg2 = dgraph.BaseGraph.load(ck)
             return bg2, self.stage_paths(bg2, rs)
         n = rs.n_reads

@@ -31,9 +31,10 @@ count's kmers differ from the reference's, the count again at the
 reference's 96M-position blocks, its raw rows and its table held to the
 stage's (range_recount: a range of leading words at a time, so its spill
 fits a chip call's disk); else the raw rows at those blocks (each block
-counted on the device and dropped).  The last line holds the reference's recorded
+counted on the device and dropped).  Either line gives each block's raw
+rows as well as their sum.  The last line holds the reference's recorded
 numbers for the rungs in REFERENCE beside this run's, each "equal",
-"differs" or "not run".
+"differs" or "not run" (a block at a time for the per-block raw rows).
 
 DIR needs room: the count spills ~20 B a raw row of its blocks (the 100 Mb
 rung: ~1.2e9 raw rows at an H100's blocks, 2.4e9 at 96M), and reads.npz,
@@ -68,8 +69,11 @@ REFERENCE = {
         source="scripts/val100mb.sh; artifacts/val100mb_r5/stage_walls.log:1,71,90",
         kmers=103_997_650, raw_rows_96m=2_438_263_316, patch_kmers=103_998_749),
     (30_000_000, 600, 12000, 49152, 12): dict(
-        source="scripts/val30mb.sh; artifacts/val30mb_r5/sim.log, run.log:18,36",
-        pairs=4_733_324, raw_rows_96m=473_961_288, kmers=31_187_695),
+        source="scripts/val30mb.sh; artifacts/val30mb_r5/sim.log, run.log:3-18,36",
+        pairs=4_733_324, raw_rows_96m=473_961_288, kmers=31_187_695,
+        raw_rows_96m_blocks=[31_907_647, 31_884_451, 31_850_176, 31_807_464, 31_803_303,
+                             31_824_225, 31_767_361, 31_884_039, 31_869_196, 31_891_607,
+                             31_807_020, 31_715_841, 31_762_519, 31_766_172, 28_420_267]),
 }
 REFERENCE_BLOCK = 96_000_000  # the reference's count block (its raw rows are at this size)
 # leading-word ranges of the 96M recount: a quarter of its spill on disk at
@@ -272,20 +276,21 @@ def raw_blocks(rs, device, block: int):
                                      p["uniform_rl"])
 
 
-def raw_rows_at(rs, device, max_positions: int) -> tuple[int, int]:
-    """The readset's raw rows (each block's distinct kmers, summed) at
-    blocks of max_positions, as count_readset_blocked spills them: each
-    block counted on the device and dropped -> (blocks, raw rows)."""
-    rows = [int(raw.n_valid) for raw in raw_blocks(rs, device, max_positions)]
-    return len(rows), sum(rows)
+def raw_rows_at(rs, device, max_positions: int) -> list[int]:
+    """The readset's raw rows (each block's distinct kmers) at blocks of
+    max_positions, as count_readset_blocked spills them: each block
+    counted on the device and dropped -> each block's raw rows."""
+    return [int(raw.n_valid) for raw in raw_blocks(rs, device, max_positions)]
 
 
-def raw_rows_96m(rs, device, out: Path) -> int:
-    """--check-96m's raw rows at the reference's blocks (one line)."""
-    (blocks, raw), line = _step("raw rows at 96M", out, lambda: raw_rows_at(
+def raw_rows_96m(rs, device, out: Path) -> list[int]:
+    """--check-96m's raw rows at the reference's blocks (one line) ->
+    each block's."""
+    rows, line = _step("raw rows at 96M", out, lambda: raw_rows_at(
         rs, device, REFERENCE_BLOCK))
-    emit(dict(line, block_positions=REFERENCE_BLOCK, blocks=blocks, raw_rows=raw))
-    return raw
+    emit(dict(line, block_positions=REFERENCE_BLOCK, blocks=len(rows), raw_rows=sum(rows),
+              block_raw_rows=rows))
+    return rows
 
 
 def range_recount(rs, device, table, spill_dir: Path, block: int, parts: int) -> dict:
@@ -299,7 +304,8 @@ def range_recount(rs, device, table, spill_dir: Path, block: int, parts: int) ->
     membership in `table` (recompute_adjacencies with the stage's table as
     the dictionary) and the range's rows compared with the table's.  Equal
     words in every range make that dictionary the recount's own, so equal
-    ranges mean equal tables -> blocks, raw rows, kmers, equal."""
+    ranges mean equal tables -> blocks, raw rows (in all and of each
+    block), kmers, equal."""
     from .. import convert
     from ..core.kmer_codec import W3
     from ..kmer import count as kcount
@@ -307,7 +313,8 @@ def range_recount(rs, device, table, spill_dir: Path, block: int, parts: int) ->
 
     host = convert.table_to_numpy(table)
     n = host.n_valid
-    raw_rows = kmers = nblocks = 0
+    block_rows = []
+    kmers = nblocks = 0
     equal = True
     bounds = [k * (1 << 32) // parts for k in range(parts + 1)]
     for lo, hi in zip(bounds, bounds[1:]):
@@ -317,7 +324,9 @@ def range_recount(rs, device, table, spill_dir: Path, block: int, parts: int) ->
                 i0, i1 = (int(torch_searchsorted(a, x)) for x in (lo, hi))
                 sub = kcount.RawBlockTable(W3(*(w[i0:i1] for w in raw.words)), raw.count[i0:i1],
                                            raw.stats[i0:i1], i1 - i0)
-                raw_rows += i1 - i0
+                if nblocks > len(block_rows):
+                    block_rows.append(0)
+                block_rows[nblocks - 1] += i1 - i0
                 sd.save(nblocks - 1, kcount.raw_block_columns(sub))
                 del raw, sub, a
             got = kcount.merge_blocks([sd.load(i) for i in range(nblocks)], device,
@@ -329,8 +338,8 @@ def range_recount(rs, device, table, spill_dir: Path, block: int, parts: int) ->
         equal &= got.n_valid == r1 - r0 and all(
             np.array_equal(x[r0:r1], y[: got.n_valid])
             for x, y in zip((*host.words, *host[1:5]), (*got.words, *got[1:5])))
-    return dict(blocks=nblocks, raw_rows=raw_rows, kmers=kmers,
-                table_equal=bool(equal and kmers == n))
+    return dict(blocks=nblocks, raw_rows=sum(block_rows), block_raw_rows=block_rows,
+                kmers=kmers, table_equal=bool(equal and kmers == n))
 
 
 def torch_searchsorted(sorted_col, value: int):
@@ -340,17 +349,17 @@ def torch_searchsorted(sorted_col, value: int):
     return torch.searchsorted(sorted_col, torch.tensor([value], device=sorted_col.device))[0]
 
 
-def recount_96m(rs, device, table, out: Path) -> int:
+def recount_96m(rs, device, table, out: Path) -> list[int]:
     """--check-96m where the kmers differ from the reference's: the count
     again at the reference's blocks, by RECOUNT_PARTS ranges of leading
     words (range_recount; spills under DIR/check_spill, removed after), its
-    table held to the stage's (one line) -> its raw rows."""
+    table held to the stage's (one line) -> each block's raw rows."""
     res, line = _step("count at 96M", out, lambda: range_recount(
         rs, device, table, out / "check_spill", REFERENCE_BLOCK, RECOUNT_PARTS))
     emit(dict(line, block_positions=REFERENCE_BLOCK, parts=RECOUNT_PARTS, **res))
     if not res["table_equal"]:
         raise RuntimeError("the count at 96M-position blocks differs from the stage's table")
-    return res["raw_rows"]
+    return res["block_raw_rows"]
 
 
 def _stage_line(pl, name: str, extra: dict) -> dict:
@@ -358,6 +367,19 @@ def _stage_line(pl, name: str, extra: dict) -> dict:
     return dict(extra, stage=name, stage_wall_s=rec.get("wall_s"),
                 device_peak_gib=None if rec.get("peak_gb") is None else round(rec["peak_gb"], 3),
                 host_peak_gb=round(rec.get("host_peak_gb", 0.0) * 2**30 / 1e9, 3))
+
+
+def _result(want, got):
+    """"equal", "differs" or "not run"; for a list (a number a block), one
+    of them for each element, and "differs" for every block past the
+    shorter list."""
+    if got is None:
+        return "not run"
+    if isinstance(want, list):
+        n = max(len(want), len(got))
+        return ["equal" if i < min(len(want), len(got)) and want[i] == got[i] else "differs"
+                for i in range(n)]
+    return "equal" if got == want else "differs"
 
 
 def run_rung(args, device) -> int:
@@ -407,9 +429,9 @@ def run_rung(args, device) -> int:
             line, reads=rs.n_reads, placed_perc=pl.stats.get("placed_perc"),
             **{k: prec.get(k) for k in ("block_positions", "blocks", "oom_retries")})))
     if args.check_96m:
-        ours["raw_rows_96m"] = (
-            recount_96m(rs, device, table, out) if ref and ref.get("kmers") != ours["kmers"]
-            else raw_rows_96m(rs, device, out))
+        rows = (recount_96m(rs, device, table, out) if ref and ref.get("kmers") != ours["kmers"]
+                else raw_rows_96m(rs, device, out))
+        ours.update(raw_rows_96m=sum(rows), raw_rows_96m_blocks=rows)
     if through >= 3:
         del table
         (bg2, _), line = _step("patch", out, lambda: pl._stage(
@@ -425,8 +447,7 @@ def run_rung(args, device) -> int:
         if k == "source":
             continue
         got = ours.get(k)
-        compare[k] = dict(reference=want, ours=got, result="not run" if got is None else (
-            "equal" if got == want else "differs"))
+        compare[k] = dict(reference=want, ours=got, result=_result(want, got))
     emit(dict(step="compare", rung=dict(zip(("genome_size", "repeats", "barcodes",
                                              "whitelist_size", "seed"), key)),
               source=(ref or {}).get("source"), compare=compare))

@@ -291,6 +291,7 @@ def test_rung_through_paths_in_a_fresh_process(rung_run):
     assert by["count"]["kmers"] > 10_000 and by["count"]["blocks"] == 1
     assert by["count"]["block_positions"] == 96_000_000
     assert by["raw rows at 96M"]["raw_rows"] >= by["count"]["kmers"]
+    assert by["raw rows at 96M"]["block_raw_rows"] == [by["raw rows at 96M"]["raw_rows"]]
     assert by["graph"]["edges"] > 0 and by["paths"]["placed_perc"] > 95
     for s in ("count", "graph", "paths"):
         x = by[s]
@@ -330,18 +331,23 @@ def test_rung_recounts_at_96m_where_the_kmers_differ(rung_run, monkeypatch, caps
     by = {x.get("step"): x for x in first}
     raw = by["raw rows at 96M"]["raw_rows"]
     monkeypatch.setitem(rung.REFERENCE, (20000, 2, 40, 128, 3),
-                        dict(source="test", kmers=by["count"]["kmers"] + 1, raw_rows_96m=raw))
+                        dict(source="test", kmers=by["count"]["kmers"] + 1, raw_rows_96m=raw,
+                             raw_rows_96m_blocks=[raw, 7]))
     assert rung.main(["--out", str(root), *RUNG, "--through", "count", "--device", "cpu",
                       "--check-96m"]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert [x["step"] for x in lines] == ["simulate", "reads.npz", "ingest", "count",
                                           "count at 96M", "compare"]
     assert lines[4]["table_equal"] and lines[4]["raw_rows"] == raw
+    assert lines[4]["block_raw_rows"] == [raw]
     assert lines[4]["kmers"] == by["count"]["kmers"]
     assert not (root / "check_spill").exists()
     assert lines[-1]["compare"]["kmers"]["result"] == "differs"
     assert lines[-1]["compare"]["raw_rows_96m"] == {"reference": raw, "ours": raw,
                                                      "result": "equal"}
+    # a block at a time; a block the run does not have differs
+    assert lines[-1]["compare"]["raw_rows_96m_blocks"] == {
+        "reference": [raw, 7], "ours": [raw], "result": ["equal", "differs"]}
 
 
 def test_checksum_native_equals_python_loop(world, monkeypatch):

@@ -6,14 +6,15 @@ torch.distributed.all_to_all_single with uneven splits.  Both ranks' merged
 table equals the single-device table, and every shard's table equals the
 same count on an in-process (2, 2) mesh and the reference's
 sharded_count_hier on its virtual-device mesh.  Each rank's Pipeline takes
-the fleet's (2, 2) topology by itself, paths on its own 2 shards, and its
-kmers.npz, graph.npz and paths.npz equal the single-device Pipeline's.
+the fleet's (2, 2) topology by itself, builds over the fleet's shard
+tables, paths on all 4 shards of the fleet, and its kmers.npz, graph.npz
+and paths.npz equal the single-device Pipeline's.
 
-The same fleet over NCCL (2 processes x 1 shard, one card each) is a card
-test: it skips without two cards."""
+The same fleet over NCCL (2 processes x 1 card, and 2 x 2), with the whole
+fleet path of tests/test_torch_fleet.py, is a card test: it skips without
+two (four) cards."""
 import pytest
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -99,34 +100,16 @@ def worker() -> None:
     tdist.destroy_process_group()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def launch_fleet(tmp_path, n_proc: int = 2, local: int = 2, device: str = "cpu"):
-    port = _free_port()
-    procs = []
-    for pid in range(n_proc):
-        env = dict(os.environ)
-        env.update(SUPERNOVA_COORDINATOR=f"127.0.0.1:{port}", SUPERNOVA_NUM_PROCESSES=str(n_proc),
-                   SUPERNOVA_PROCESS_ID=str(pid), SUPERNOVA_LOCAL_DEVICES=str(local),
-                   MPW_OUT=str(tmp_path), MPW_DEVICE=device,
-                   PYTHONPATH=f"{REPO}:{env.get('PYTHONPATH', '')}")
-        procs.append(subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve())],
-            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    outs = []
-    for p in procs:
-        try:
-            out, _ = p.communicate(timeout=240)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise
-        outs.append(out)
-    return procs, outs
+    """n_proc ranks of this file's worker (parallel/dist.py's spawn_fleet)
+    -> (their Popens, their outputs)."""
+    from supernova_tpu_torch.parallel import dist
+
+    env = dict(os.environ, MPW_OUT=str(tmp_path), MPW_DEVICE=device,
+               PYTHONPATH=f"{REPO}:{os.environ.get('PYTHONPATH', '')}")
+    procs = dist.spawn_fleet([sys.executable, str(Path(__file__).resolve())], n_proc, local, env,
+                             cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return procs, [out for out, _ in dist.wait_fleet(procs, timeout=240)]
 
 
 NAMES = ("words", "count", "nbc", "lm", "rm")
@@ -144,9 +127,11 @@ def assert_npz_equal(want, got):
 def check_fleet(tmp_path, local: int, device: str):
     """Two ranks of `local` shards on `device`: the fleet's merged table
     == the single-device table on both ranks, each rank's Pipeline ran the
-    mesh count over the fleet's (2, local) topology, paths on its own
-    shards, and wrote the single-device Pipeline's kmers/graph/paths.npz.
+    mesh count over the fleet's (2, local) topology, the build over its
+    shard tables and paths over all 2 * local shards, and wrote the
+    single-device Pipeline's kmers/graph/paths.npz.
     -> (rank 0's npz, rank 1's npz, the in-process (2, local) tables)."""
+    tmp_path.mkdir(parents=True, exist_ok=True)
     procs, outs = launch_fleet(tmp_path, local=local, device=device)
     for p, out in zip(procs, outs):
         assert p.returncode == 0, f"worker failed:\n{out[-4000:]}"
@@ -158,7 +143,7 @@ def check_fleet(tmp_path, local: int, device: str):
         assert np.array_equal(r0[f"merged_{k}"], r1[f"merged_{k}"]), k
     for r in (r0, r1):
         assert list(r["pl_topology"]) == [2, local] and int(r["pl_shards"]) == 2 * local
-        assert int(r["pl_path_shards"]) == (local if local > 1 else 0)
+        assert int(r["pl_path_shards"]) == 2 * local  # the fleet's shards, as the reference's
         assert str(r["pl_route"]) == "mesh"
     from supernova_tpu_torch.pipeline.run import Pipeline
 
@@ -195,16 +180,67 @@ def check_fleet(tmp_path, local: int, device: str):
     return r0, r1, tables
 
 
-@pytest.mark.cuda
-def test_two_process_nccl_fleet_matches_single(tmp_path):
-    """The NCCL route: init_from_env("cuda"), the host-axis exchange over
-    all_to_all_single on CUDA tensors, all_gather and all_gather_object."""
+def check_nccl_fleet(tmp_path, local: int):
+    """The NCCL route with `local` cards a process: init_from_env("cuda"),
+    the hierarchical count as above, then tests/test_torch_fleet.py's
+    worker over the fleet's flat mesh of 2 * local cards (every exchange
+    across processes over all_to_all_single on CUDA tensors, staged
+    through each process's first card; the reductions, the sized gathers,
+    the build, both pathers, the glue, links, votes and the Pipeline
+    through the supergraph stage), each equal to the CPU's."""
     import torch
 
-    if torch.cuda.device_count() < 2:
+    import test_torch_fleet as tf  # this directory's (test_torch_fleet.py says why)
+
+    if torch.cuda.device_count() < 2 * local:
+        pytest.skip(f"an NCCL fleet of 2 processes x {local} cards needs {2 * local} cards")
+    r0, r1, _ = check_fleet(tmp_path / "count", local=local, device="cuda")
+    assert list(r0["devices"]) == [f"cuda:{i}" for i in range(local)]
+    assert list(r1["devices"]) == [f"cuda:{local + i}" for i in range(local)]
+    single = tf.single_e2e(tmp_path / "single")
+    ranks = tf.check_fleet_run(tmp_path / "fleet", "cuda", local, single)
+    assert [list(x["devices"]) for x in ranks] == [list(r0["devices"]), list(r1["devices"])]
+
+
+@pytest.mark.cuda
+def test_two_process_nccl_fleet_matches_single(tmp_path):
+    """2 processes x 1 card (two cards)."""
+    check_nccl_fleet(tmp_path, local=1)
+
+
+@pytest.mark.cuda
+def test_two_process_two_card_nccl_fleet_matches_single(tmp_path):
+    """2 processes x 2 cards (four cards): each process's shards on two
+    cards, its exchanges staged through its first."""
+    check_nccl_fleet(tmp_path, local=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataset", ["FULL", "GENOME"])
+def test_nccl_fleet_on_datasets_matches_one_card(tmp_path, dataset):
+    """stats/fleet.py on the full slice and on the genome: count, graph,
+    paths, patch and supergraph on one card, then over NCCL fleets of 2
+    processes x 1 card and (with four cards) 2 x 2; every process's
+    checkpoints equal to the one card's.  Its JSON lines (walls, card
+    peaks, rows sent across processes) are printed."""
+    import json
+
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
         pytest.skip("an NCCL fleet needs one card per process: two cards")
-    r0, r1, _ = check_fleet(tmp_path, local=1, device="cuda")
-    assert list(r0["devices"]) == ["cuda:0"] and list(r1["devices"]) == ["cuda:1"]
+    locals_ = [1, 2] if cards >= 4 else [1]
+    out = subprocess.run([sys.executable, "-m", "supernova_tpu_torch.stats.fleet",
+                          "--out", str(tmp_path), "--dataset", dataset,
+                          "--locals", ",".join(map(str, locals_))],
+                         cwd=REPO, capture_output=True, text=True, timeout=2400)
+    print(out.stdout)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    last = json.loads(out.stdout.splitlines()[-1])
+    assert {"kmers.npz", "graph.npz", "paths.npz", "supergraph.npz"} <= set(last["files"])
+    assert last["ok"] and len(last["equal"]) == 2 * len(last["files"]) * len(locals_)
+    assert all(last["equal"].values())
 
 
 def test_two_process_hier_count_matches_single(tmp_path):

@@ -1,14 +1,18 @@
 """A genome-size rung of the reference's validation ladder on one device:
-simulated 10x FASTQs through the Pipeline's count, graph, paths and patch
-stages, one JSON line a step.
+simulated 10x FASTQs through the Pipeline's stages and the command line's
+`run --resume` and `evaluate`, one JSON line a step.
 
     python -m supernova_tpu_torch.stats.rung --out DIR --genome-size N --repeats R \\
-        --barcodes B --whitelist-size W --seed S [--through count|graph|paths|patch] \\
+        --barcodes B --whitelist-size W --seed S \\
+        [--through count|graph|paths|patch|supergraph|scaffold|fasta|evaluate] \\
         [--device cuda|cpu] [--check-96m]
 
 The rungs are the reference's scripts/val*mb.sh; the 100 Mb one is
 --genome-size 100000000 --repeats 2000 --barcodes 40000 --whitelist-size
-163840 --seed 13.  Steps:
+163840 --seed 13, the 10 Mb one (held through evaluate to the JAX
+package's own run of the same reads, rung_records/val10mb_cpu.json)
+--genome-size 10000000 --repeats 200 --barcodes 4000 --whitelist-size 16384
+--seed 11.  Steps:
   1. simulate with `simulate`'s model (cli.simulate_sample; its other
      arguments at their defaults) and 2. write the reads as LANES
      bcl2fastq-named lanes of 10x FASTQs, one forked process a lane, with
@@ -17,24 +21,45 @@ The rungs are the reference's scripts/val*mb.sh; the 100 Mb one is
      holds them;
   3. discovery, preflight and ingest_10x_fastqs of the lanes (DIR/run's
      reads.npz instead when an earlier run left it), then
-     Pipeline(DIR/run, device, resume=True): stage_ingest and the stages
-     in order up to --through.  Every stage leaves its checkpoint, so a cut
-     run started again resumes without recounting (the count from its
-     spills, DIR/run/count_spill, in the blocks they were counted in).
+     Pipeline(DIR/run, device, resume=True): stage_ingest (reads.npz) and,
+     for --through count, graph, paths or patch, those stages in order.
+     Every stage leaves its checkpoint, so a cut run started again resumes
+     without recounting (the count from its spills, DIR/run/count_spill,
+     in the blocks they were counted in);
+  4. past patch: `python -m supernova_tpu_torch run --resume --flavors
+     raw,pseudohap` on DIR/run through cli.main in this process (its
+     printed summary goes to stderr), which reloads reads.npz and runs
+     every stage itself (count, graph, paths, patch, supergraph and
+     scaffold: the star-gap phases or the legacy scaffolder), then writes
+     the FASTA flavors, GFA, super files, histograms, report and summary
+     files, exactly as the command does: a one-shot run's files (a
+     resumed run's StatLogger forgets which keys summary.json holds, in
+     both packages).  --through supergraph or scaffold stops the command
+     after that stage's line; "fasta" is everything after the scaffold
+     stage to the command's exit;
+  5. --through evaluate: `python -m supernova_tpu_torch evaluate` of the
+     pseudohap against the simulated haplotypes in a fresh process, its
+     output in DIR/eval.json.
 Each step prints one JSON line: wall; the stage's device peak; its host
 peak RSS, and the anonymous and file-backed parts apart (RssAnon, RssFile
-of /proc/self/status, sampled); free disk in DIR before and after; and
-the stage's counts (block budget, blocks, raw rows, partitions, kmers,
-edges, reads, placed_perc; the patch's closures and its rebuild's kmers).
---check-96m (after the paths stage, before the patch stage): when the
-count's kmers differ from the reference's, the count again at the
+of /proc/self/status, sampled); free disk in DIR before and after; the
+stage's kernel launches; and its counts (block budget, blocks, raw rows,
+partitions, kmers, edges, reads, placed_perc; the patch's closures and its
+rebuild's kmers; the supergraph's glue route, positions and overflow; the
+scaffold's mode, joins, each phase's wall, the het DP's pairs and seconds
+and the scaffolds; each FASTA flavor's records and bases; evaluate's
+dict).  --check-96m (after the paths stage, before the patch stage): when
+the count's kmers differ from the reference's, the count again at the
 reference's 96M-position blocks, its raw rows and its table held to the
 stage's (range_recount: a range of leading words at a time, so its spill
 fits a chip call's disk); else the raw rows at those blocks (each block
 counted on the device and dropped).  Either line gives each block's raw
 rows as well as their sum.  The last line holds the reference's recorded
 numbers for the rungs in REFERENCE beside this run's, each "equal",
-"differs" or "not run" (a block at a time for the per-block raw rows).
+"differs" or "not run" (a block at a time for the per-block raw rows; a
+record file's keys as stats/rung_record.py flattens them, the whole
+comparison also in DIR/compare.json; past the outputs, this run's own
+record in DIR/record.json).
 
 DIR needs room: the count spills ~20 B a raw row of its blocks (the 100 Mb
 rung: ~1.2e9 raw rows at an H100's blocks, 2.4e9 at 96M), and reads.npz,
@@ -59,15 +84,20 @@ from pathlib import Path
 
 import numpy as np
 
+from . import rung_record as rr
+
 # 10x lanes the FASTQs are written as, one process each
 LANES = 8
-STAGES = ("count", "graph", "paths", "patch")
+STAGES = ("count", "graph", "paths", "patch", "supergraph", "scaffold", "fasta", "evaluate")
 # the numbers the reference recorded for its rungs, by (genome size,
 # repeats, barcodes, whitelist size, seed)
 REFERENCE = {
     (100_000_000, 2000, 40000, 163840, 13): dict(
         source="scripts/val100mb.sh; artifacts/val100mb_r5/stage_walls.log:1,71,90",
         kmers=103_997_650, raw_rows_96m=2_438_263_316, patch_kmers=103_998_749),
+    (10_000_000, 200, 4000, 16384, 11): dict(
+        source="scripts/val10mb.sh; supernova_tpu_torch/stats/rung_records/val10mb_cpu.json",
+        record="val10mb_cpu.json"),
     (30_000_000, 600, 12000, 49152, 12): dict(
         source="scripts/val30mb.sh; artifacts/val30mb_r5/sim.log, run.log:3-18,36",
         pairs=4_733_324, raw_rows_96m=473_961_288, kmers=31_187_695,
@@ -193,8 +223,8 @@ def _disk_free_gb(path) -> float:
     return round(shutil.disk_usage(path).free / 1e9, 3)
 
 
-def emit(line: dict) -> None:
-    print(json.dumps(line), flush=True)
+def emit(line: dict, file=None) -> None:
+    print(json.dumps(line), file=file or sys.stdout, flush=True)
 
 
 def _step(name: str, out: Path, fn):
@@ -366,7 +396,139 @@ def _stage_line(pl, name: str, extra: dict) -> dict:
     rec = pl.stage_records.get(name, {})
     return dict(extra, stage=name, stage_wall_s=rec.get("wall_s"),
                 device_peak_gib=None if rec.get("peak_gb") is None else round(rec["peak_gb"], 3),
-                host_peak_gb=round(rec.get("host_peak_gb", 0.0) * 2**30 / 1e9, 3))
+                host_peak_gb=round(rec.get("host_peak_gb", 0.0) * 2**30 / 1e9, 3),
+                launches=rec.get("launches"))
+
+
+def _fields(pl, name: str, res, args: tuple) -> dict:
+    """The counts of a stage's line, from its record, the stats and its
+    result `res` (args: the stage function's arguments)."""
+    rec, st = pl.stage_records.get(name, {}), pl.stats
+    if name == "count":
+        return dict(kmers=int(res[0].n_valid), resumed_from_kmers_npz="blocks" not in rec,
+                    **{k: rec.get(k) for k in ("block_positions", "blocks", "raw_rows",
+                                               "partitions", "spilled_blocks", "resumed_blocks",
+                                               "oom_retries")})
+    if name == "graph":
+        return dict(edges=res.n_edges, kmers=int(args[0].n_valid))
+    if name == "paths":
+        return dict(reads=args[1].n_reads, placed_perc=st.get("placed_perc"),
+                    **{k: rec.get(k) for k in ("block_positions", "blocks", "oom_retries")})
+    if name == "patch":
+        # every valid table row is two oriented nodes of the rebuilt graph
+        return dict(gap_pairs=st.get("gap_pairs"), closures=st.get("gap_closures"),
+                    rebuild_kmers=int((np.asarray(res[0].node_edge) >= 0).sum()) // 2,
+                    edges=res[0].n_edges, placed_perc=st.get("placed_perc"))
+    if name == "supergraph":
+        return {k: st.get(k) for k in ("glue_route", "glue_positions", "glue_overflow")}
+    if name == "scaffold":
+        return dict(scaffold_mode=st.get("scaffold_mode") or "legacy",
+                    star_gap_joins=st.get("star_gap_joins", 0),
+                    barcode_joins=st.get("barcode_joins", 0),
+                    phase_s={k: round(v, 3) for k, v in rec.get("phase_s", {}).items()},
+                    het_pairs=rec.get("het_pairs"), het_dp_s=rec.get("het_dp_s"),
+                    n_scaffolds=st.get("n_scaffolds"))
+    return {}
+
+
+def _note(ours: dict, name: str, fields: dict) -> None:
+    """The numbers REFERENCE records from a stage's line: the count's kmers
+    and the patch's rebuilt kmers."""
+    if name == "count":
+        ours["kmers"] = fields["kmers"]
+    elif name == "patch":
+        ours["patch_kmers"] = fields["rebuild_kmers"]
+
+
+def check_96m(args, ref, ours: dict, rs, device, table, out: Path) -> None:
+    """--check-96m (after the paths stage): the recount where the kmers
+    differ from the reference's, else the raw rows at 96M."""
+    rows = (recount_96m(rs, device, table, out) if ref and ref.get("kmers") != ours["kmers"]
+            else raw_rows_96m(rs, device, out))
+    ours.update(raw_rows_96m=sum(rows), raw_rows_96m_blocks=rows)
+
+
+class _Through(BaseException):
+    """Stops `run --resume` after the --through stage's line (a
+    BaseException: the orchestrator's retry and cli's crash handling catch
+    Exception only)."""
+
+
+def run_command(args, device, ref, ours: dict, rundir: Path, out: Path) -> None:
+    """Step 4: `run --resume --flavors raw,pseudohap` on rundir through
+    cli.main in this process (it reloads reads.npz), a line for each of
+    run_full's timed stages (--check-96m's after the paths stage's) and one
+    for everything after the scaffold stage ("fasta"); stops after the
+    --through stage's line where that is supergraph or scaffold."""
+    import contextlib
+
+    from .. import cli
+    from ..ops import kernels
+    from ..pipeline.run import Pipeline
+
+    timed = Pipeline._timed
+    held, tail = {}, {}
+    stdout = sys.stdout  # the lines' stream: the command's own output goes to stderr
+
+    def observed(pl, name, fn, *a, **kw):
+        res, line = _step(name, out, lambda: timed(pl, name, fn, *a, **kw))
+        fields = _fields(pl, name, res, a)
+        emit(_stage_line(pl, name, dict(line, **fields)), stdout)
+        _note(ours, name, fields)
+        if name == "count" and args.check_96m:
+            held["table"] = res[0]  # through paths, as run_stages holds it
+        if name == "paths" and args.check_96m:
+            check_96m(args, ref, ours, a[1], device, held.pop("table"), out)
+        if name == args.through:
+            raise _Through()
+        if name == "scaffold":  # the outputs follow: the "fasta" step
+            tail.update(t0=time.perf_counter(), disk=_disk_free_gb(out),
+                        launches=kernels.launch_counts(), rss=RssSampler().__enter__())
+        return res
+
+    argv = ["run", "--fastqs", str(out / "sim"), "--whitelist", str(out / "sim" / "whitelist.txt"),
+            "--out", str(rundir), "--resume", "--flavors", ",".join(rr.FLAVORS),
+            "--device", str(device)]
+    Pipeline._timed = observed
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = cli.main(argv)
+    except _Through:
+        return
+    finally:
+        Pipeline._timed = timed
+        if "rss" in tail:
+            tail["rss"].__exit__(None, None, None)
+    if rc != 0:
+        raise RuntimeError(f"run --resume exited {rc}")
+    wall = time.perf_counter() - tail["t0"]
+    fasta = {fl: rr.fasta_digest(rundir / f"assembly.{fl}.fasta.gz") for fl in rr.FLAVORS}
+    emit(dict(step="fasta", wall_s=round(wall, 3), **tail["rss"].gb(),
+              disk_free_gb_before=tail["disk"], disk_free_gb_after=_disk_free_gb(out),
+              launches=kernels.launches_since(tail["launches"]),
+              **{fl: dict(records=d["records"], bases=d["bases"]) for fl, d in fasta.items()}))
+
+
+def evaluate_step(rundir: Path, out: Path) -> dict:
+    """Step 5: `python -m supernova_tpu_torch evaluate` of the pseudohap in a
+    fresh process, its output in DIR/eval.json -> its dict."""
+    sim = out / "sim"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parents[2]), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    with open(out / "eval.json", "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "supernova_tpu_torch", "evaluate", "--fasta",
+             str(rundir / "assembly.pseudohap.fasta.gz"), "--truth",
+             str(sim / "truth_hap_a.npy"), str(sim / "truth_hap_b.npy")], stdout=f, env=env)
+        _, status, usage = os.wait4(proc.pid, 0)
+        proc.returncode = os.waitstatus_to_exitcode(status)
+    if proc.returncode != 0:
+        raise RuntimeError(f"evaluate exited {proc.returncode}")
+    res = rr.load_eval(out / "eval.json")
+    emit(dict(step="evaluate", wall_s=round(time.perf_counter() - t0, 3),
+              process_max_rss_gb=round(usage.ru_maxrss * 1024 / 1e9, 3), **res))
+    return res
 
 
 def _result(want, got):
@@ -380,6 +542,30 @@ def _result(want, got):
         return ["equal" if i < min(len(want), len(got)) and want[i] == got[i] else "differs"
                 for i in range(n)]
     return "equal" if got == want else "differs"
+
+
+def run_stages(args, device, ref, ours: dict, pl, rs, out: Path) -> None:
+    """Step 3's stages from count to --through (patch at most), each
+    through the Pipeline's own stage call."""
+    through = STAGES.index(args.through)
+
+    def stage(name, fn, *a):
+        res, line = _step(name, out, lambda: pl._stage(name, fn, *a))
+        fields = _fields(pl, name, res, a)
+        emit(_stage_line(pl, name, dict(line, **fields)))
+        _note(ours, name, fields)
+        return res
+
+    table, rs = stage("count", pl._count_with_cov_guard, rs)
+    if through >= 1:
+        bg = stage("graph", pl.stage_graph, table)
+    if through >= 2:
+        rp = stage("paths", pl.stage_paths, bg, rs)
+    if args.check_96m:
+        check_96m(args, ref, ours, rs, device, table, out)
+    if through >= 3:
+        del table
+        stage("patch", pl.stage_patch, bg, rp, rs)
 
 
 def run_rung(args, device) -> int:
@@ -409,62 +595,56 @@ def run_rung(args, device) -> int:
     rs, line = _step("ingest", out, lambda: pl._stage("ingest", pl.stage_ingest, rs))
     emit(_stage_line(pl, "ingest", dict(line, reads=rs.n_reads, lazy=bool(rs.is_lazy))))
     through = STAGES.index(args.through)
-
-    (table, rs), line = _step("count", out, lambda: pl._stage(
-        "count", pl._count_with_cov_guard, rs))
-    crec = pl.stage_records["count"]
-    ours["kmers"] = int(table.n_valid)
-    emit(_stage_line(pl, "count", dict(
-        line, kmers=ours["kmers"], resumed_from_kmers_npz="blocks" not in crec,
-        **{k: crec.get(k) for k in ("block_positions", "blocks", "raw_rows", "partitions",
-                                    "spilled_blocks", "resumed_blocks", "oom_retries")})))
-    if through >= 1:
-        bg, line = _step("graph", out, lambda: pl._stage("graph", pl.stage_graph, table))
-        emit(_stage_line(pl, "graph", dict(line, edges=bg.n_edges,
-                                           kmers=int(table.n_valid))))
-    if through >= 2:
-        rp, line = _step("paths", out, lambda: pl._stage("paths", pl.stage_paths, bg, rs))
-        prec = pl.stage_records.get("paths", {})
-        emit(_stage_line(pl, "paths", dict(
-            line, reads=rs.n_reads, placed_perc=pl.stats.get("placed_perc"),
-            **{k: prec.get(k) for k in ("block_positions", "blocks", "oom_retries")})))
-    if args.check_96m:
-        rows = (recount_96m(rs, device, table, out) if ref and ref.get("kmers") != ours["kmers"]
-                else raw_rows_96m(rs, device, out))
-        ours.update(raw_rows_96m=sum(rows), raw_rows_96m_blocks=rows)
-    if through >= 3:
-        del table
-        (bg2, _), line = _step("patch", out, lambda: pl._stage(
-            "patch", pl.stage_patch, bg, rp, rs))
-        # every valid table row is two oriented nodes of the rebuilt graph
-        ours["patch_kmers"] = int((np.asarray(bg2.node_edge) >= 0).sum()) // 2
-        emit(_stage_line(pl, "patch", dict(
-            line, gap_pairs=pl.stats.get("gap_pairs"), closures=pl.stats.get("gap_closures"),
-            rebuild_kmers=ours["patch_kmers"], edges=bg2.n_edges,
-            placed_perc=pl.stats.get("placed_perc"))))
+    if through <= STAGES.index("patch"):
+        run_stages(args, device, ref, ours, pl, rs, out)
+    else:
+        # the command runs every stage itself, from reads.npz, so that what
+        # it writes is a one-shot run's (a resumed StatLogger loses which
+        # keys summary.json holds)
+        del rs, pl
+        run_command(args, device, ref, ours, rundir, out)
+    ev = evaluate_step(rundir, out) if args.through == "evaluate" else None
     compare = {}
     for k, want in (ref or {}).items():
-        if k == "source":
+        if k in ("source", "record"):
             continue
         got = ours.get(k)
         compare[k] = dict(reference=want, ours=got, result=_result(want, got))
-    emit(dict(step="compare", rung=dict(zip(("genome_size", "repeats", "barcodes",
-                                             "whitelist_size", "seed"), key)),
-              source=(ref or {}).get("source"), compare=compare))
+    line = dict(step="compare", rung=dict(zip(("genome_size", "repeats", "barcodes",
+                                               "whitelist_size", "seed"), key)),
+                source=(ref or {}).get("source"), compare=compare)
+    flat = dict(ours)
+    if through >= STAGES.index("fasta"):
+        rec = rr.assembly_record(rundir, ev, pairs=sim["pairs"])
+        (out / "record.json").write_text(json.dumps(rec, indent=1, sort_keys=True) + "\n")
+        flat.update(rr.flatten(rec))
+    if ref and ref.get("record"):
+        compare.update(rr.compare(rr.flatten(rr.load_record(ref["record"])), flat))
+        results = [x["result"] for x in compare.values()]
+        line["counts"] = {r: results.count(r) for r in ("equal", "differs", "not run")}
+    (out / "compare.json").write_text(json.dumps(line, indent=1) + "\n")
+    emit(line)
     return 0
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    ap = argparse.ArgumentParser(prog="python -m supernova_tpu_torch.stats.rung")
+    ap = argparse.ArgumentParser(
+        prog="python -m supernova_tpu_torch.stats.rung",
+        description="A validation rung: simulated 10x FASTQs through count, graph, paths and "
+                    "patch, then `run --resume` (supergraph, scaffold, the FASTA flavors) and "
+                    "`evaluate`, one JSON line a step, held to REFERENCE's records.")
     ap.add_argument("--out", required=True)
     ap.add_argument("--genome-size", type=int, required=True)
     ap.add_argument("--repeats", type=int, required=True)
     ap.add_argument("--barcodes", type=int, required=True)
     ap.add_argument("--whitelist-size", type=int, required=True)
     ap.add_argument("--seed", type=int, required=True)
-    ap.add_argument("--through", choices=STAGES, default="patch")
+    ap.add_argument("--through", choices=STAGES, default="patch",
+                    help="the last step: a Pipeline stage (count, graph, paths, patch), a "
+                         "stage of `run --resume` (supergraph, scaffold), its outputs (fasta) "
+                         "or `evaluate` of the pseudohap (default: patch)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--check-96m", action="store_true")
     args = ap.parse_args(argv)

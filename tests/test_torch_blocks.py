@@ -296,6 +296,7 @@ def test_rung_through_paths_in_a_fresh_process(rung_run):
     for s in ("count", "graph", "paths"):
         x = by[s]
         assert x["wall_s"] >= 0 and x["device_peak_gib"] is None
+        assert set(x["launches"]) == {"kmer_extract", "compact", "run_reduce", "sort"}
         assert 0 < x["host_RssAnon_peak_gb"] <= x["host_VmRSS_peak_gb"]
         assert x["disk_free_gb_after"] > 0
     for name in ("kmers.npz", "graph.npz", "paths.npz"):
@@ -348,6 +349,42 @@ def test_rung_recounts_at_96m_where_the_kmers_differ(rung_run, monkeypatch, caps
     # a block at a time; a block the run does not have differs
     assert lines[-1]["compare"]["raw_rows_96m_blocks"] == {
         "reference": [raw, 7], "ours": [raw], "result": ["equal", "differs"]}
+
+
+def test_rung_through_supergraph_runs_the_command_and_holds_a_record(rung_run, monkeypatch,
+                                                                      capsys, tmp_path):
+    """Past patch the rung runs `run --resume` in this process, which runs
+    every stage from reads.npz (a line each) and stops after the
+    --through stage's line; a rung with a record file compares each of the
+    record's keys: the count's equal, the outputs' not run (the command
+    stopped before them)."""
+    from supernova_tpu_torch.stats import rung_record
+
+    root, first = rung_run
+    assert rung.STAGES == ("count", "graph", "paths", "patch", "supergraph", "scaffold",
+                           "fasta", "evaluate")
+    kmers = first[3]["kmers"]
+    (tmp_path / "t.json").write_text(json.dumps(dict(
+        pairs=first[0]["pairs"], kmers=kmers + 1, summary={"nreads": 1}, alerts=[])))
+    monkeypatch.setattr(rung_record, "RECORDS", tmp_path)
+    monkeypatch.setitem(rung.REFERENCE, (20000, 2, 40, 128, 3),
+                        dict(source="test", record="t.json"))
+    assert rung.main(["--out", str(root), *RUNG, "--through", "supergraph",
+                      "--device", "cpu"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["step"] for x in lines] == ["simulate", "reads.npz", "ingest", "count", "graph",
+                                          "paths", "patch", "supergraph", "compare"]
+    by = {x["step"]: x for x in lines}
+    assert by["count"]["resumed_from_kmers_npz"] and by["count"]["kmers"] == kmers
+    assert by["patch"]["rebuild_kmers"] > 0 and by["supergraph"]["glue_route"] == "host"
+    assert sum(by["supergraph"]["launches"].values()) == 0
+    assert (root / "run" / "supergraph.npz").exists()
+    assert not (root / "run" / "splay").exists()  # stopped before the scaffold stage
+    cmp = lines[-1]
+    assert {k: v["result"] for k, v in cmp["compare"].items()} == {
+        "pairs": "equal", "kmers": "differs", "summary.nreads": "not run", "alerts": "not run"}
+    assert cmp["counts"] == {"equal": 1, "differs": 1, "not run": 2}
+    assert json.loads((root / "compare.json").read_text()) == cmp
 
 
 def test_checksum_native_equals_python_loop(world, monkeypatch):

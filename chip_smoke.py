@@ -185,11 +185,7 @@ every kernel launched; K1-K4 against their twins at shard 0's shapes; walls
 and peaks beside the card's name and power limit, marked as virtual shards.
 [mesh glue] (after 6's glue): glue_closures_sharded over the 4 shards on
 the genome's closures, the one-device glue's partition, overflow 0.
-[bench] (after 11, nothing else on the card): `python -m
-supernova_tpu_torch bench` in a fresh process at the reference's sizes,
-both JSON lines parsed, the count line first; beside it the same without a
-visible card, which must exit nonzero and print no result.  [fleet]
-(after [bench]): on a host of two or more cards, stats/fleet.py's 2 x 1
+[fleet] (after 11): on a host of two or more cards, stats/fleet.py's 2 x 1
 NCCL fleet on the full slice (count, graph, paths, patch and supergraph
 across processes), every process's checkpoints equal to one card's; on
 one card a line saying
@@ -345,7 +341,7 @@ def check_sort(torch, keys, shape):
         ms=median_ms(torch, lambda: k4.lex_argsort_cuda(*keys)),
         plain_ms=median_ms(torch, lambda: k4.lex_argsort_plain(*keys)),
         # read every key once, write the int64 permutation
-        bound_ms=bound_ms(rows * 8 * (len(keys) + 1)),
+        bound_ms=bound_ms(k4.launch_bytes(rows, len(keys))),
         library_ms=median_ms(torch, lambda: torch.sort(packed, stable=True).indices),
         library_shape=(f"torch.sort(stable=True) of keys 0-1 packed in one int64, {rows} rows"
                        if len(keys) > 1 else f"torch.sort(stable=True) of the key, {rows} rows"),
@@ -415,7 +411,7 @@ def phase_kernels(torch, rs, dev):
         ms=median_ms(torch, lambda: k1.sliding_words_cuda(codes, n)),
         plain_ms=median_ms(torch, lambda: k1.sliding_words_plain(codes, n)),
         # read the codes, write three int64 words per position
-        bound_ms=bound_ms(codes.numel() * 4 + n * 3 * 8),
+        bound_ms=bound_ms(k1.launch_bytes(codes.numel(), n)),
     )
     print_kernel("kmer_extract", res["kmer_extract"])
     del got, ref, inp, codes
@@ -442,7 +438,7 @@ def phase_kernels(torch, rs, dev):
         shape=f"{rows} rows", max_abs_err=err, ms=ms,
         plain_ms=median_ms(torch, lambda: k3.run_reduce_plain(ws.a, ws.b, ws.c, pk, mf, mb)),
         # read three words and the attributes, write keep, count and stats
-        bound_ms=bound_ms(rows * (4 * 8 + 1 + 4 + 4)),
+        bound_ms=bound_ms(k3.launch_bytes(rows)),
     )
     print_kernel("run_reduce", res["run_reduce"])
     print_launches(torch, "run_reduce", lambda: k3.run_reduce_cuda(ws.a, ws.b, ws.c, pk, mf, mb))
@@ -519,7 +515,7 @@ def phase_kernels_derived(torch, rs, dev, res, crec):
     against_twin("kmer_extract", k1.sliding_words_cuda(codes, n),
                  lambda: k1.sliding_words_plain(codes, n), f"{n} positions")
     out["kmer_extract"].update(ms=median_ms(torch, lambda: k1.sliding_words_cuda(codes, n), reps=3),
-                               bound_ms=bound_ms(codes.numel() * 4 + n * 3 * 8))
+                               bound_ms=bound_ms(k1.launch_bytes(codes.numel(), n)))
     canon, pk = kcount.occurrence_rows(codes, p["pos_read"], p["glen_pos"], p["bc_pos"],
                                        p["uniform_rl"])
     del p, codes
@@ -531,7 +527,7 @@ def phase_kernels_derived(torch, rs, dev, res, crec):
     packed = k4._pair(keys[0], keys[1])
     out["sort"].update(
         ms=median_ms(torch, lambda: k4.lex_argsort_cuda(*keys), reps=3),
-        bound_ms=bound_ms(rows * 8 * (len(keys) + 1)),
+        bound_ms=bound_ms(k4.launch_bytes(rows, len(keys))),
         library_ms=median_ms(torch, lambda: torch.sort(packed, stable=True).indices, reps=3),
         library_shape=f"torch.sort(stable=True) of keys 0-1 packed in one int64, {rows} rows")
     del packed
@@ -543,7 +539,7 @@ def phase_kernels_derived(torch, rs, dev, res, crec):
                  f"{rows} rows")
     out["run_reduce"].update(
         ms=median_ms(torch, lambda: k3.run_reduce_cuda(ws.a, ws.b, ws.c, pk, mf, mb), reps=3),
-        bound_ms=bound_ms(rows * (4 * 8 + 1 + 4 + 4)))
+        bound_ms=bound_ms(k3.launch_bytes(rows)))
     keep, count, stats = got
     del pk, got
     out["compact"] = compact_kept(torch, keep, (ws.a, ws.b, ws.c, count, stats), "derived block")[0]
@@ -579,7 +575,7 @@ def phase_kernels_mixed(torch, rs, dev, res):
         mixed_shape=f"{n} positions", mixed_max_abs_err=max_abs_err(torch, zip(got, ref)),
         mixed_ms=median_ms(torch, lambda: k1.sliding_words_cuda(codes, n)),
         mixed_plain_ms=median_ms(torch, lambda: k1.sliding_words_plain(codes, n)),
-        mixed_bound_ms=bound_ms(codes.numel() * 4 + n * 3 * 8))
+        mixed_bound_ms=bound_ms(k1.launch_bytes(codes.numel(), n)))
     print_kernel("kmer_extract (mixed block)", mixed_view(res["kmer_extract"]))
     del got, ref
 
@@ -604,7 +600,7 @@ def phase_kernels_mixed(torch, rs, dev, res):
             f"{key}_max_abs_err": max_abs_err(torch, zip(got, ref)),
             f"{key}_ms": median_ms(torch, lambda: k3.run_reduce_cuda(ws.a, ws.b, ws.c, pk, mf, mb)),
             f"{key}_plain_ms": plain,  # one call: the twin takes seconds here
-            f"{key}_bound_ms": bound_ms(rows * (4 * 8 + 1 + 4 + 4))})
+            f"{key}_bound_ms": bound_ms(k3.launch_bytes(rows))})
         print_kernel(f"run_reduce (mixed block, ({mf}, {mb}))", mixed_view(k3res, key))
         outs[key] = got
         del ref
@@ -671,7 +667,7 @@ def compact_kept(torch, keep, cols, label):
         shape=f"{rows} rows x {len(cols)} columns, {nv} kept ({nv / rows:.4f})", max_abs_err=err,
         ms=median_ms(torch, lambda: k2.compact_cuda(keep, *cols)),
         plain_ms=median_ms(torch, lambda: k2.compact_plain(keep, *cols)),
-        bound_ms=bound_ms(rows + 2 * nv * row_bytes),
+        bound_ms=bound_ms(k2.launch_bytes(rows, nv, row_bytes, fill=False)),
         sector_floor_ms=bound_ms(rows + nv * len(cols) * 32 + nv * row_bytes),
         library_ms=median_ms(torch, lambda: [c[keep] for c in cols]),
         library_shape=f"c[keep] for each of the {len(cols)} columns",
@@ -713,7 +709,7 @@ def check_compact(torch, keep, cols, label):
         fill_plain_ms=median_ms(torch, lambda: k2.compact_plain(keep, *cols, fills=K2_FILLS)),
         three_step_ms=median_ms(torch, three_step),
         # ... and write every row of every column
-        fill_bound_ms=bound_ms(rows + nv * row_bytes + rows * row_bytes),
+        fill_bound_ms=bound_ms(k2.launch_bytes(rows, nv, row_bytes, fill=True)),
         fill_sector_floor_ms=bound_ms(rows + sectors + rows * row_bytes),
     )
     print_kernel(f"compact ({label})", r)
@@ -892,7 +888,7 @@ def mesh_kernels(torch, mesh, inputs, res):
         max_abs_err=max_abs_err(torch, zip(got, ref)),
         ms=median_ms(torch, lambda: k1.sliding_words_cuda(codes, n)),
         plain_ms=median_ms(torch, lambda: k1.sliding_words_plain(codes, n)),
-        bound_ms=bound_ms(codes.numel() * 4 + n * 3 * 8))
+        bound_ms=bound_ms(k1.launch_bytes(codes.numel(), n)))
     print_kernel("kmer_extract (mesh shard)", res["kmer_extract"]["mesh"])
     del got, ref
     cols, keys = [], []
@@ -917,7 +913,7 @@ def mesh_kernels(torch, mesh, inputs, res):
         shape=f"{rows} rows (shard 0)", max_abs_err=max_abs_err(torch, zip(got, ref)),
         ms=median_ms(torch, lambda: k3.run_reduce_cuda(*ws, mf, mb)),
         plain_ms=median_ms(torch, lambda: k3.run_reduce_plain(*ws, mf, mb)),
-        bound_ms=bound_ms(rows * (4 * 8 + 1 + 4 + 4)), library_ms=None)
+        bound_ms=bound_ms(k3.launch_bytes(rows)), library_ms=None)
     print_kernel("run_reduce (mesh shard)", res["run_reduce"]["mesh"])
     keep, count, stats = got
     r, _ = compact_kept(torch, keep, (ws[0], ws[1], ws[2], count, stats), "mesh shard 0")
@@ -1118,39 +1114,6 @@ def phase_mesh_glue(torch, dev, sg, rs, outdir, smi):
           f"{len(np.unique(got))} classes, P {info['positions']}), overflow 0; {wall:.3f} s "
           f"(host clock); launches {launches}")
     return launches
-
-
-def phase_bench(torch):
-    """`python -m supernova_tpu_torch bench` in a fresh process with nothing
-    else on the card (the reference's sizes): both JSON lines, the count
-    line first; beside it `bench` with no card visible, which must exit
-    nonzero and print no result."""
-    no_card = Background(port_cmd("bench"), env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "supernova_tpu_torch", "bench"], cwd=REPO,
-                         env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
-                         text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    check(res.returncode == 0, f"bench: exit {res.returncode}: {res.stderr[-1000:]}")
-    lines = [json.loads(x) for x in res.stdout.strip().splitlines()]
-    check(len(lines) == 2 and all(x["metric"] == "kmer_count_throughput" for x in lines),
-          f"bench: printed {res.stdout[-500:]}")
-    first, second = lines
-    check(first["extra"].get("pather") == "pending" and "reads_aligned_per_s" in second["extra"],
-          "bench: the count line did not come first, or the pather line has no pather")
-    ex = second["extra"]
-    print(f"[bench] kmer_count_throughput value {second['value']} kmers/s/chip (vs_baseline "
-          f"{second['vs_baseline']}), reads_aligned_per_s {ex['reads_aligned_per_s']} "
-          f"(pather_vs_baseline {ex['pather_vs_baseline']}), placed_frac {ex['placed_frac']}; "
-          f"n_valid {ex['n_valid']}; the bench process {wall:.1f} s")
-    rc, out, err = no_card.result(120)
-    check(rc != 0 and not out.strip(), f"bench without a card exited {rc}, printed {out[-200:]}")
-    said = [line for line in err.splitlines() if line.startswith("ERROR")]
-    print(f"[bench] CUDA_VISIBLE_DEVICES= python -m supernova_tpu_torch bench: exit {rc}, no "
-          f"result ({said[-1] if said else 'no message'})")
-    check(not foreign_imports(err), "bench: the no-card process imported jax or supernova_tpu")
 
 
 # 10x lanes the genome's FASTQs are written as, one process each
@@ -1887,7 +1850,7 @@ def phase_links_kernels(torch, dev, bcv, item, cap, res):
         ms=median_ms(torch, lambda: k2.compact_cuda(keep, *cols, fills=fills)),
         plain_ms=median_ms(torch, lambda: k2.compact_plain(keep, *cols, fills=fills)),
         # read the mask and the kept rows, write every row of every column
-        bound_ms=bound_ms(rows + nv * 24 + rows * 24),
+        bound_ms=bound_ms(k2.launch_bytes(rows, nv, 24, fill=True)),
         library_ms=median_ms(torch, lambda: [c[keep] for c in cols]),
         library_shape="c[keep] for each of the 3 columns")
     print_kernel("compact (links run totals)", r)
@@ -2419,7 +2382,7 @@ def phase_kernels_patch(torch, dev, bg, outdir, res, save_s):
         patch_shape=f"{n} positions", patch_max_abs_err=max_abs_err(torch, zip(got, ref)),
         patch_ms=median_ms(torch, lambda: k1.sliding_words_cuda(codes, n)),
         patch_plain_ms=median_ms(torch, lambda: k1.sliding_words_plain(codes, n)),
-        patch_bound_ms=bound_ms(codes.numel() * 4 + n * 3 * 8))
+        patch_bound_ms=bound_ms(k1.launch_bytes(codes.numel(), n)))
     print_kernel("kmer_extract (patch rebuild)", mixed_view(res["kmer_extract"], "patch"))
     del got, ref
 
@@ -2443,7 +2406,7 @@ def phase_kernels_patch(torch, dev, bg, outdir, res, save_s):
                     f"({mf}, {mb})",
         patch_max_abs_err=max_abs_err(torch, zip(got, ref)),
         patch_ms=median_ms(torch, lambda: k3.run_reduce_cuda(ws.a, ws.b, ws.c, pk, mf, mb)),
-        patch_plain_ms=plain, patch_bound_ms=bound_ms(rows * (4 * 8 + 1 + 4 + 4)),
+        patch_plain_ms=plain, patch_bound_ms=bound_ms(k3.launch_bytes(rows)),
         patch_sentinel_run_ms=median_ms(torch, lambda: k3.run_reduce_cuda(
             ws.a[n_real:], ws.b[n_real:], ws.c[n_real:], pk[n_real:], mf, mb)))
     print_kernel("run_reduce (patch rebuild)", mixed_view(res["run_reduce"], "patch"))
@@ -2801,7 +2764,8 @@ def phase_general_vs_fused(torch, bg, rs, dev):
     block = kcount.split_readset_blocks(rs, kcount.BLOCK_POSITIONS)[0]
     pk = kcount.prepare_reads_packed(block)
     fused, wf, pf, _ = measured(torch, lambda: pather._path_packed(
-        bg, pk, dev, pather.MAX_PATH, kcount._round_up(block.n_reads + 1, 1024)))
+        bg, pather.packed_inputs(pk, dev), dev, pather.MAX_PATH,
+        kcount._round_up(block.n_reads + 1, 1024)))
     inp = kcount.prepare_reads(block, dev)
     for rl in (inp["uniform_rl"], None):
         general, wg, pg, _ = measured(torch, lambda: pather._path_full(
@@ -3147,7 +3111,6 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
     torch.cuda.empty_cache()
     timed("graph sort", phase_graph_sort, torch, table.n_valid)
     del table
-    timed("bench", phase_bench, torch)
     timed("fleet", phase_fleet, torch, smi)
 
     timed("evaluate wait", report_evaluate, evaluate)

@@ -18,9 +18,8 @@ The command line and the pipeline runtime:
   __main__.py, cli.py  the reference's subcommands (run, simulate, evaluate,
                        diagnose, mkoutput, stats, sitecheck, bcmat, tarmri,
                        demux, mkfastq, import-ref, export-ref, readcount,
-                       sam, readqa, graph-fasta, graph-stats, scaf-graph,
-                       bench) and the multi-host join from the environment
-  bench.py             the benchmark: count throughput, reads aligned/s
+                       sam, readqa, graph-fasta, graph-stats, scaf-graph)
+                       and the multi-host join from the environment
   pipeline/run.py      Pipeline: run() (raw FASTA), run_full() (every
                        output), each stage with resume; run_full's stages
                        through the orchestrator
@@ -30,7 +29,8 @@ The command line and the pipeline runtime:
                        simulated readsets the port is measured on
   core/config.py       addin overrides of heuristic constants (copy)
   core/device.py       explicit device resolution (no CPU fallback)
-  stats/               stage timer (trace.py), StatLogger, histograms,
+  stats/               stage timer and profiler spans with their counters
+                       (trace.py), StatLogger, histograms,
                        gems (copies); profile_slice, profile_supergraph,
                        kernel_phases (measurement scripts for the card)
 

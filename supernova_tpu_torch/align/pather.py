@@ -22,6 +22,12 @@ _path_readset_blocked), halving the block size on a device OOM.  A block's
 size is `path_block_positions`: on a card what its free memory holds beside
 the graph's dictionary, on the CPU (the tests' device) the reference's
 BLOCK_POSITIONS.
+
+A call is the span call.path_readset (stats/trace.py), each block's steps
+call.paths.prep (the block's host preparation, its upload and expansion
+on the device), call.paths.join (K1, canonicalisation, the tail cut and
+the merge join with its value gathers) and call.paths.place (slotting,
+seed chains, and the blocks' concatenation).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 from ..core import kmer_codec as kc
 from ..core.kmer_codec import K, W3
 from ..kmer import count as kcount
+from ..stats.trace import span, upload
 
 MAX_PATH = 12  # max edges a 150 bp read can plausibly traverse; overflow flagged
 JITTER = 3  # max indel slack for captured gaps / junctions
@@ -182,18 +189,21 @@ def path_reads_fused_impl(kmer_words: W3, node_edge, node_pos, from_v, to_v, edg
     one merge-join against the dictionary, then slotting and seed-chain
     validation at hit scale."""
     cols = uniform_rl - K + 1
-    canon, flipped = kc.canonicalize(kc.sliding_words(codes_ext, nbp))
-    a_, b_, c_, flipped, rlen_q = kcount.uniform_tail_cut(
-        uniform_rl, canon.a, canon.b, canon.c, flipped, rlen_pos
-    )
-    n = a_.shape[0]
-    pirq = torch.arange(n, device=a_.device) % cols
-    invalid = pirq + K > rlen_q  # padding reads
-    hit, edge, epos = _join(kmer_words, node_edge, node_pos, W3(a_, b_, c_), flipped, invalid)
-    return _compact_and_place(
-        hit, edge, epos, lambda cq: (cq // cols, cq % cols), rp, max_path,
-        from_v, to_v, edge_kmers,
-    )
+    with span("call.paths.join", codes_ext.device):
+        canon, flipped = kc.canonicalize(kc.sliding_words(codes_ext, nbp))
+        a_, b_, c_, flipped, rlen_q = kcount.uniform_tail_cut(
+            uniform_rl, canon.a, canon.b, canon.c, flipped, rlen_pos
+        )
+        n = a_.shape[0]
+        pirq = torch.arange(n, device=a_.device) % cols
+        invalid = pirq + K > rlen_q  # padding reads
+        hit, edge, epos = _join(kmer_words, node_edge, node_pos, W3(a_, b_, c_), flipped,
+                                invalid)
+    with span("call.paths.place", codes_ext.device):
+        return _compact_and_place(
+            hit, edge, epos, lambda cq: (cq // cols, cq % cols), rp, max_path,
+            from_v, to_v, edge_kmers,
+        )
 
 
 def general_queries(codes_ext, read_offsets, pos_read, rlen_pos, uniform_rl: int | None = None):
@@ -237,34 +247,43 @@ def path_reads_impl(kmer_words: W3, node_edge, node_pos, from_v, to_v, edge_kmer
     """The general pather (per-position inputs of kcount.prepare_reads, any
     read lengths): general_queries, one merge-join against the dictionary
     (K4), then place_hits.  Output rows: rp = len(read_offsets) - 1."""
-    canon, flipped, invalid, locate = general_queries(codes_ext, read_offsets, pos_read,
-                                                      rlen_pos, uniform_rl)
-    hit, edge, epos = _join(kmer_words, node_edge, node_pos, canon, flipped, invalid)
-    return place_hits(hit, edge, epos, locate, read_offsets.shape[0] - 1, max_path,
-                      from_v, to_v, edge_kmers)
+    with span("call.paths.join", codes_ext.device):
+        canon, flipped, invalid, locate = general_queries(codes_ext, read_offsets, pos_read,
+                                                          rlen_pos, uniform_rl)
+        hit, edge, epos = _join(kmer_words, node_edge, node_pos, canon, flipped, invalid)
+    with span("call.paths.place", codes_ext.device):
+        return place_hits(hit, edge, epos, locate, read_offsets.shape[0] - 1, max_path,
+                          from_v, to_v, edge_kmers)
 
 
-def path_reads_packed(kmer_words: W3, node_edge, node_pos, from_v, to_v, edge_kmers,
-                      codes_packed, n_reads: int, max_path: int, uniform_rl: int,
-                      nbp: int, rp_pad: int) -> ReadPaths:
-    """Pathing from compact inputs (2-bit packed codes + read count): the
-    per-position arrays are rebuilt on the device."""
-    rl = uniform_rl
-    codes_ext = kcount._unpack_codes_dev(codes_packed, nbp, max(K, 128))
+def packed_inputs(pk: dict, device) -> dict:
+    """The fused pather's device inputs from kcount.prepare_reads_packed's
+    host arrays: the packed codes uploaded and unpacked, and each
+    position's read length (0 past the last read)."""
+    rl, nbp = pk["uniform_rl"], pk["nbp"]
+    codes_ext = kcount._unpack_codes_dev(upload(pk["codes_packed"], device), nbp, max(K, 128))
     pos = torch.arange(nbp, device=codes_ext.device) // rl
-    rlen_pos = torch.where(pos < n_reads, rl, 0)
-    return path_reads_fused_impl(
-        kmer_words, node_edge, node_pos, from_v, to_v, edge_kmers,
-        codes_ext, rlen_pos, nbp, rp_pad, max_path, rl,
-    )
+    return dict(codes_ext=codes_ext, rlen_pos=torch.where(pos < int(pk["n_reads"]), rl, 0),
+                nbp=nbp, uniform_rl=rl)
 
 
-def _path_packed(bg, pk, device, max_path: int, rp_pad: int) -> ReadPaths:
+def prepare_block(rs, device, packed: bool, pad_to_positions: int | None = None,
+                  pad_to_reads: int | None = None) -> dict:
+    """One block's inputs on `device` (the prep step): packed_inputs for the
+    fused pather, else kcount.prepare_reads' for the general one."""
+    with span("call.paths.prep", device):
+        if packed:
+            return packed_inputs(kcount.prepare_reads_packed(rs, pad_to_positions), device)
+        return kcount.prepare_reads(rs, device, pad_to_positions=pad_to_positions,
+                                    pad_to_reads=pad_to_reads)
+
+
+def _path_packed(bg, inp, device, max_path: int, rp_pad: int) -> ReadPaths:
     da = bg.device_arrays(device)
-    return path_reads_packed(
+    return path_reads_fused_impl(
         da["words"], da["node_edge"], da["node_pos"], da["from_v"], da["to_v"],
-        da["edge_kmers"], torch.from_numpy(pk["codes_packed"]).to(device),
-        int(pk["n_reads"]), max_path, pk["uniform_rl"], pk["nbp"], rp_pad,
+        da["edge_kmers"], inp["codes_ext"], inp["rlen_pos"], inp["nbp"], rp_pad, max_path,
+        inp["uniform_rl"],
     )
 
 
@@ -317,7 +336,8 @@ def path_readset_blocked(bg, rs, device, max_path: int = MAX_PATH,
     block_positions."""
     device = torch.device(device)
     max_positions = max_positions or path_block_positions(device, bg)
-    blocks = kcount.split_readset_blocks(rs, max_positions)
+    with span("call.paths.prep", device):
+        blocks = kcount.split_readset_blocks(rs, max_positions)
     pad_pos = max(int(b.offsets[-1]) for b in blocks)
     pad_rd = max(b.n_reads for b in blocks)
     packed = kcount._uniform_rl(rs) is not None
@@ -325,14 +345,16 @@ def path_readset_blocked(bg, rs, device, max_path: int = MAX_PATH,
         info.update(blocks=len(blocks), block_positions=max_positions)
     parts = []
     for b in blocks:
+        inp = prepare_block(b, device, packed, pad_pos, pad_rd)
         if packed:
-            rp = _path_packed(bg, kcount.prepare_reads_packed(b, pad_to_positions=pad_pos),
-                              device, max_path, kcount._round_up(pad_rd + 1, 1024))
+            rp = _path_packed(bg, inp, device, max_path, kcount._round_up(pad_rd + 1, 1024))
         else:
-            rp = _path_full(bg, kcount.prepare_reads(b, device, pad_to_positions=pad_pos,
-                                                     pad_to_reads=pad_rd), device, max_path)
+            rp = _path_full(bg, inp, device, max_path)
+        del inp
         parts.append([x[: b.n_reads] for x in rp])
-    return ReadPaths(*(torch.cat([p[i] for p in parts]) for i in range(len(ReadPaths._fields))))
+    with span("call.paths.place", device):
+        return ReadPaths(*(torch.cat([p[i] for p in parts])
+                           for i in range(len(ReadPaths._fields))))
 
 
 def path_readset(bg, rs, device, max_path: int = MAX_PATH, info: dict | None = None,
@@ -345,13 +367,17 @@ def path_readset(bg, rs, device, max_path: int = MAX_PATH, info: dict | None = N
     receives blocks, block_positions and oom_retries; one block: blocks 1,
     block_positions)."""
     device = torch.device(device)
-    max_positions = max_positions or path_block_positions(device, bg)
-    if int(rs.offsets[-1]) > max_positions:
-        return kcount.halving_retry("paths", device, info, lambda max_pos: path_readset_blocked(
-            bg, rs, device, max_path, max_positions=max_pos, info=info), max_positions)
-    if info is not None:
-        info.update(blocks=1, block_positions=int(max_positions))
-    pk = kcount.prepare_reads_packed(rs)
-    if pk is not None:
-        return _path_packed(bg, pk, device, max_path, kcount._round_up(rs.n_reads + 1, 1024))
-    return _path_full(bg, kcount.prepare_reads(rs, device), device, max_path)
+    with span("call.path_readset", device):
+        max_positions = max_positions or path_block_positions(device, bg)
+        if int(rs.offsets[-1]) > max_positions:
+            return kcount.halving_retry(
+                "paths", device, info, lambda max_pos: path_readset_blocked(
+                    bg, rs, device, max_path, max_positions=max_pos, info=info), max_positions)
+        if info is not None:
+            info.update(blocks=1, block_positions=int(max_positions))
+        packed = kcount._uniform_rl(rs) is not None
+        inp = prepare_block(rs, device, packed)
+        if packed:
+            return _path_packed(bg, inp, device, max_path,
+                                kcount._round_up(rs.n_reads + 1, 1024))
+        return _path_full(bg, inp, device, max_path)

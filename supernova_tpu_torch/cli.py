@@ -18,8 +18,6 @@ differences:
   * --localcores sets OMP_NUM_THREADS and torch.set_num_threads.
   * mkoutput refuses an assembly_state.pkl written by the JAX package
     (its classes name supernova_tpu modules), and imports none of it.
-  * `bench` runs the port's benchmark (supernova_tpu_torch/bench.py) on
-    --device, not the repo's bench.py.
   * The multi-host join from the environment (SUPERNOVA_NUM_PROCESSES > 1,
     parallel/dist.py) joins a torch.distributed group after the arguments
     are parsed, with the backend of --device (gloo for cpu, NCCL for cuda).
@@ -702,12 +700,6 @@ def cmd_scaf_graph(args) -> int:
     return 0
 
 
-def cmd_bench(args) -> int:
-    from .bench import main as bench_main
-
-    return bench_main(args.device)
-
-
 def build_parser() -> argparse.ArgumentParser:
     """The command line's parser: every subcommand and its arguments."""
     ap = argparse.ArgumentParser(prog="supernova_tpu_torch")
@@ -900,10 +892,6 @@ def build_parser() -> argparse.ArgumentParser:
     sg.add_argument("--min-bcs", type=int, default=2)
     sg.add_argument("--max-bcs", type=int, default=5000)
     sg.set_defaults(fn=cmd_scaf_graph)
-
-    b = sub.add_parser("bench", help="run the port's count and pather benchmark")
-    b.add_argument("--device", default=argparse.SUPPRESS, help="as the top-level --device")
-    b.set_defaults(fn=cmd_bench)
     return ap
 
 

@@ -48,6 +48,7 @@ from ..ingest.feudal import pack_codes
 from ..ingest.reads import ReadSet
 from ..ops import segments as seg
 from ..ops.kernels.run_reduce import run_reduce, run_stats_plain
+from ..stats.trace import span, upload
 from . import spill
 
 log = logging.getLogger("supernova_tpu_torch")
@@ -166,11 +167,22 @@ def unpack_occurrence_attrs(pk):
     return bc, (pk >> 6) & 15, (pk >> 2) & 15, ((pk >> 1) & 1) == 1
 
 
+def sort_occurrence_rows(canon: W3, packed):
+    """The (kmer, packed attrs) rows sorted (K4 on the card) -> (words, attrs)."""
+    ws, (pk,), _ = kc.sort_by_words(canon, extra_keys=(packed,))
+    return ws, pk
+
+
 def _reduce_packed(canon: W3, packed, min_freq: int, min_bc: int) -> KmerTable:
     """Sort (kmer, packed attrs) rows and reduce each run into a filtered
     KmerTable padded to the row count."""
-    ws, (pk,), _ = kc.sort_by_words(canon, extra_keys=(packed,))
-    if canon.a.device.type == "cuda":
+    return _reduce_sorted(*sort_occurrence_rows(canon, packed), min_freq, min_bc)
+
+
+def _reduce_sorted(ws: W3, pk, min_freq: int, min_bc: int) -> KmerTable:
+    """Reduce each run of the sorted rows into a filtered KmerTable padded
+    to the row count."""
+    if ws.a.device.type == "cuda":
         # fused: all per-run statistics + the keep decision in one pass (K3),
         # then a stable compaction of the kept run ends (K2), which also
         # writes the sentinel/zero tail
@@ -378,7 +390,7 @@ def prepare_reads(rs, device, pad_to_positions: int | None = None,
     reps = np.append(np.diff(rs.offsets), nbp - nb).astype(np.int64)
     rlen = np.append(reps[:n_reads], 0).astype(np.int32)
     glen = np.append(good_lengths_np(rs.quals, rs.offsets), 0).astype(np.int32)
-    t = lambda a: torch.from_numpy(a).to(device)
+    t = lambda a: upload(a, device)
     pos_read = torch.repeat_interleave(
         torch.arange(n_reads + 1, dtype=torch.int32, device=device), t(reps), output_size=nbp)
     per_pos = lambda a: torch.index_select(t(a), 0, pos_read)
@@ -476,11 +488,11 @@ class RawBlockTable(NamedTuple):
     n_valid: torch.Tensor  # 0-d int64
 
 
-def _reduce_occurrences_raw(canon: W3, packed) -> RawBlockTable:
-    """Sort + per-run reduce WITHOUT the (min_freq, min_bc) filter: K3 with
-    min_freq=1, min_bc=0 keeps every real run end (its plain twin on the
-    CPU, which clamps nbc at 4095 as the reference's raw branch does)."""
-    ws, (pk,), _ = kc.sort_by_words(canon, extra_keys=(packed,))
+def _reduce_sorted_raw(ws: W3, pk) -> RawBlockTable:
+    """Per-run reduce of the sorted rows WITHOUT the (min_freq, min_bc)
+    filter: K3 with min_freq=1, min_bc=0 keeps every real run end (its
+    plain twin on the CPU, which clamps nbc at 4095 as the reference's raw
+    branch does)."""
     keep, count, stats = run_reduce(ws.a, ws.b, ws.c, pk, 1, 0)
     n_valid, (wa, wb, wc, c2, st2) = seg.compact_sorted_words(
         keep, ws.a, ws.b, ws.c, count, stats, word_fill=kc.SENTINEL
@@ -491,10 +503,15 @@ def _reduce_occurrences_raw(canon: W3, packed) -> RawBlockTable:
 def count_block_raw(codes_ext, pos_read, glen_pos, bc_pos,
                     uniform_rl: int | None = None, min_read_len: int = K + 1) -> RawBlockTable:
     """One block of the blocked count from per-position inputs
-    (prepare_reads): extract (+ the tail cut for uniform reads) and the raw
-    reduce, K1, K4, K3 and K2 on the card."""
-    return _reduce_occurrences_raw(*occurrence_rows(codes_ext, pos_read, glen_pos, bc_pos,
-                                                    uniform_rl, min_read_len))
+    (prepare_reads): extract (+ the tail cut for uniform reads) and sort
+    (the sort step: K1, K4), then the raw reduce (the reduce step: K3,
+    K2)."""
+    dev = codes_ext.device
+    with span("call.count.sort", dev):
+        rows = sort_occurrence_rows(*occurrence_rows(codes_ext, pos_read, glen_pos, bc_pos,
+                                                     uniform_rl, min_read_len))
+    with span("call.count.reduce", dev):
+        return _reduce_sorted_raw(*rows)
 
 
 def split_readset_blocks(rs, max_positions: int):
@@ -751,7 +768,8 @@ def count_readset_blocked(rs, device, min_freq: int | None = None, min_bc: int |
                 block_positions=int(max_positions))
 
     def count_block(i):
-        p = prepare_reads(blocks[i], device, pad_to_positions=pad_pos, pad_to_reads=pad_rd)
+        with span("call.count.prep", device):
+            p = prepare_reads(blocks[i], device, pad_to_positions=pad_pos, pad_to_reads=pad_rd)
         raw = count_block_raw(p["codes_ext"], p["pos_read"], p["glen_pos"], p["bc_pos"],
                               p["uniform_rl"], min_read_len)
         if i == 0:  # the raw table keeps the sort's row count
@@ -779,9 +797,11 @@ def count_readset_blocked(rs, device, min_freq: int | None = None, min_bc: int |
                         resumed_blocks=len(blocks) - len(pending))
         log.info("blocked count: merging %d raw rows - %s, rss=%.1f GB",
                  sum(block_rows), _device_memory(device), _rss_gb())
-        table = merge_blocks(cols, device, min_freq, min_bc, merge_rows, info)
+        with span("call.count.reduce", device):
+            table = merge_blocks(cols, device, min_freq, min_bc, merge_rows, info)
         del cols  # release the memory maps before the directory goes
-    return recompute_adjacencies(table)
+    with span("call.count.recompute", device):
+        return recompute_adjacencies(table)
 
 
 def _first_block(info: dict | None, inp: dict, sort_col) -> None:
@@ -874,24 +894,33 @@ def count_readset(rs, device, min_freq: int | None = None, min_bc: int | None = 
     spill_dir as there) under halving_retry, which starts from it; a
     smaller one is one block (info: blocks 1, block_positions).  The table
     is trimmed to the geometric-ladder row count before the adjacency
-    recompute, so its membership joins run at table scale."""
+    recompute, so its membership joins run at table scale.  The call is
+    the span call.count_readset, its steps call.count.prep, .sort, .reduce
+    and .recompute (stats/trace.py; a block's steps in the blocked count)."""
     from ..dbg.build import trim_table
 
     device = torch.device(device)
     min_freq = MIN_FREQ if min_freq is None else min_freq
     min_bc = MIN_BC if min_bc is None else min_bc
-    max_positions = max_positions or planned_block_positions(rs, device, min_freq, min_bc,
-                                                             spill_dir)
-    if int(rs.offsets[-1]) > max_positions:
-        return halving_retry("count", device, info, lambda max_pos: count_readset_blocked(
-            rs, device, min_freq, min_bc, min_read_len, max_positions=max_pos,
-            spill_dir=spill_dir, info=info), max_positions)
-    if info is not None:
-        info.update(blocks=1, block_positions=int(max_positions))
-    inp = prepare_reads(rs, device)
-    rows = occurrence_rows(inp["codes_ext"], inp["pos_read"], inp["glen_pos"], inp["bc_pos"],
-                           inp["uniform_rl"], min_read_len)
-    _first_block(info, inp, rows[1])
-    table = _reduce_packed(*rows, min_freq, min_bc)
-    del rows
-    return recompute_adjacencies(trim_table(table))
+    with span("call.count_readset", device):
+        max_positions = max_positions or planned_block_positions(rs, device, min_freq, min_bc,
+                                                                 spill_dir)
+        if int(rs.offsets[-1]) > max_positions:
+            return halving_retry("count", device, info, lambda max_pos: count_readset_blocked(
+                rs, device, min_freq, min_bc, min_read_len, max_positions=max_pos,
+                spill_dir=spill_dir, info=info), max_positions)
+        if info is not None:
+            info.update(blocks=1, block_positions=int(max_positions))
+        with span("call.count.prep", device):
+            inp = prepare_reads(rs, device)
+        with span("call.count.sort", device):
+            rows = occurrence_rows(inp["codes_ext"], inp["pos_read"], inp["glen_pos"],
+                                   inp["bc_pos"], inp["uniform_rl"], min_read_len)
+            _first_block(info, inp, rows[1])
+            ws, pk = sort_occurrence_rows(*rows)
+        with span("call.count.reduce", device):
+            table = _reduce_sorted(ws, pk, min_freq, min_bc)
+            del rows, ws, pk
+            trimmed = trim_table(table)
+        with span("call.count.recompute", device):
+            return recompute_adjacencies(trimmed)

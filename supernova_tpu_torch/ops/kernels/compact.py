@@ -18,6 +18,13 @@ MAX_COLS = 8
 _ESIZE = {torch.int32: 4, torch.int64: 8}
 
 
+def launch_bytes(rows: int, kept: int, row_bytes: int, fill: bool) -> int:
+    """Bytes one launch moves: read the bool mask and the kept rows of every
+    column (row_bytes a row), write the kept rows, or with a fill every
+    row."""
+    return rows + kept * row_bytes + (rows if fill else kept) * row_bytes
+
+
 def _check_fills(cols, fills):
     """Raise unless `fills` is None or one value per column that fits the
     column's dtype."""
@@ -80,6 +87,16 @@ def compact_cuda(valid: torch.Tensor, *cols: torch.Tensor, fills=None):
         "compact",
     )
     compact.launches += 1
+    fill = fills is not None
+    row_bytes = sum(_ESIZE[c.dtype] for c in cols)
+    base = launch_bytes(n, 0, row_bytes, fill)
+    compact.bytes += base
+    # the kept rows' part, n_valid x bytes a kept row, stays on the card:
+    # a new tensor each launch, so that a counter snapshot keeps its value
+    per_kept = launch_bytes(n, 1, row_bytes, fill) - base
+    prev = compact.kept_bytes.get(dev)
+    compact.kept_bytes[dev] = (n_valid * per_kept if prev is None
+                               else torch.add(prev, n_valid, alpha=per_kept))
     return n_valid, outs
 
 
@@ -95,3 +112,5 @@ def compact(valid: torch.Tensor, *cols: torch.Tensor, fills=None):
 
 
 compact.launches = 0
+compact.bytes = 0
+compact.kept_bytes = {}  # device -> 0-d int64 tensor

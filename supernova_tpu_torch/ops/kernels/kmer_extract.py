@@ -13,6 +13,12 @@ from . import _lib
 K = 48
 
 
+def launch_bytes(m: int, n: int) -> int:
+    """Bytes one launch moves: read m int32 codes, write three int64 words
+    at each of n starts."""
+    return m * 4 + n * 3 * 8
+
+
 def sliding_words_plain(codes: torch.Tensor, n: int):
     """Plain PyTorch twin: 48 shifted slices, shift-or'd into three words."""
     c = codes.to(torch.int64)
@@ -45,6 +51,7 @@ def sliding_words_cuda(codes: torch.Tensor, n: int):
         "kmer_extract",
     )
     sliding_words.launches += 1
+    sliding_words.bytes += launch_bytes(m, n)
     return out
 
 
@@ -60,3 +67,4 @@ def sliding_words(codes: torch.Tensor, n: int):
 
 
 sliding_words.launches = 0
+sliding_words.bytes = 0

@@ -20,6 +20,12 @@ SENTINEL = 0xFFFFFFFF
 BC_FIELD_IGNORED = 0x3FFFFF
 
 
+def launch_bytes(rows: int) -> int:
+    """Bytes one launch moves: read three int64 words and the int64
+    attributes, write keep (bool), count and stats (int32) of every row."""
+    return rows * (4 * 8 + 1 + 4 + 4)
+
+
 def run_stats_plain(w0, w1, w2, pk):
     """Per-run statistics without gathers: every stat is a cumsum (or a
     cummax of positions) read off relative to the run start.
@@ -102,6 +108,7 @@ def run_reduce_cuda(w0, w1, w2, pk, min_freq: int, min_bc: int):
         "run_reduce",
     )
     run_reduce.launches += 1
+    run_reduce.bytes += launch_bytes(n)
     return keep, count, stats
 
 
@@ -115,3 +122,4 @@ def run_reduce(w0, w1, w2, pk, min_freq: int, min_bc: int):
 
 
 run_reduce.launches = 0
+run_reduce.bytes = 0

@@ -22,6 +22,12 @@ RADIX = 256
 DIGITS = 4  # 8-bit digits of a 32-bit key
 
 
+def launch_bytes(rows: int, keys: int) -> int:
+    """Bytes one sort moves: read every int64 key once, write the int64
+    permutation."""
+    return rows * 8 * (keys + 1)
+
+
 def _pair(hi, lo):
     """Two keys in [0, 2^32) -> one int64 key with the same order: hi is
     shifted to [-2^31, 2^31) (the sign-bit flip) so hi * 2^32 + lo spans
@@ -87,6 +93,7 @@ def lex_argsort_cuda(*keys):
     _lib.check(lib.sn_radix_hist(ctypes.addressof(ptrs), len(keys), n, hist.data_ptr(), stream),
                "sort")
     lex_argsort.launches += 1
+    lex_argsort.bytes += launch_bytes(n, len(keys))
     passes = plan_passes([live_digits_from_hist(h, n) for h in hist.cpu()])
     if not passes:
         return torch.arange(n, dtype=torch.int64, device=dev)
@@ -127,3 +134,4 @@ def lex_argsort(*keys):
 
 
 lex_argsort.launches = 0
+lex_argsort.bytes = 0

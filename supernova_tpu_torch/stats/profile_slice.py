@@ -13,7 +13,9 @@ time, the device busy time (the union of the device events' intervals),
 idle share = 1 - busy / wall, peak device memory, the device time and
 launches of each of the port's kernels K1-K4, the device time and calls
 of the elementwise operators the count's tail passes ran (WATCHED_OPS),
-and the profile's top operators by self device time.  Everything printed is also
+the device time of each program step (the `call.` spans of
+stats/trace.py) by kernel, and the profile's top operators by self
+device time.  Everything printed is also
 written to OUT.txt.
 """
 from __future__ import annotations
@@ -72,6 +74,31 @@ def port_kernels(prof) -> str:
     return ", ".join(f"{k} {ms:.3f} ms ({n} device launches)" for k, (ms, n) in sums.items())
 
 
+def span_kernels(prof) -> dict:
+    """{step: {kernel: device seconds}} over the program's steps: each
+    `call.` span leaves an annotation on the device's timeline, and a
+    kernel counts in the shortest annotation that holds its start."""
+    ann, kern = [], []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            s, t = e.time_range.start / 1e6, e.time_range.end / 1e6
+            (ann if e.name.startswith("call.") else kern).append((s, t, e.name))
+    out: dict = {}
+    for s, t, name in kern:
+        holding = [(a1 - a0, step) for a0, a1, step in ann if a0 <= s <= a1]
+        step = min(holding)[1] if holding else "none"
+        per = out.setdefault(step, {})
+        per[short_name(name)] = per.get(short_name(name), 0.0) + (t - s)
+    return out
+
+
+def span_lines(prof, top: int = 3) -> list[str]:
+    """One line a step: its device seconds and its top kernels."""
+    return [f"{step}: {sum(per.values()):.3f} s; " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(per.items(), key=lambda kv: -kv[1])[:top])
+        for step, per in sorted(span_kernels(prof).items())]
+
+
 def watched_ops(prof) -> str:
     """Self device time and calls of each operator in WATCHED_OPS."""
     avg = {e.key: e for e in prof.key_averages()}
@@ -125,6 +152,8 @@ def main(out_path: str, dataset: str = "FULL") -> int:
                  f"peak {pl.stage_records[name]['peak_gb']:.3f} GiB")
             emit(f"port kernels: {port_kernels(prof)}")
             emit(f"tail-pass operators: {watched_ops(prof)}")
+            for line in span_lines(prof):
+                emit(f"step {line}")
             emit(prof.key_averages().table(sort_by="self_device_time_total", row_limit=14,
                           max_name_column_width=60))
             return res

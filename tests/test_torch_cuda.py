@@ -696,3 +696,48 @@ def test_links_votes_and_fmindex_cuda_equal_cpu(dev):
     got = fm.count_batch_device(pats, lens, device=dev)
     assert got.device.type == "cuda"
     assert torch.equal(got.cpu(), want.count_batch_device(pats, lens, device="cpu"))
+
+
+def test_spans_and_byte_counters_on_the_card(dev):
+    """K2's bytes count its kept rows, read from the card; a traced count
+    on the card gives each step a device interval and the launches' bytes
+    the shapes' arithmetic (K1's from prepare_reads' codes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from supernova_tpu_torch.pipeline import datasets
+    from supernova_tpu_torch.stats import trace as st
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    n = 100_003
+    keep = torch.rand(n, device=dev, generator=g) < 0.3
+    cols = (torch.arange(n, device=dev), torch.arange(n, device=dev, dtype=torch.int32))
+    for fills in (None, (0, 0)):
+        b0 = kernels.byte_counts()["compact"]
+        nv, _ = k2.compact(keep, *cols, fills=fills)
+        assert kernels.byte_counts()["compact"] - b0 == k2.launch_bytes(
+            n, int(nv), 12, fill=fills is not None)
+
+    rs = datasets.simulate(datasets.SMALL, datasets.SMALL_SEED)
+    kcount.count_readset(rs, dev)  # the library built and loaded outside the profile
+    st.clear_spans()
+    info: dict = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        table = kcount.count_readset(rs, dev, info=info)
+    log = st.spans()
+    st.clear_spans()
+    assert [s["name"] for s in log] == ["call.count.prep", "call.count.sort", "call.count.reduce",
+                                        "call.count.recompute", "call.count_readset"]
+    assert all(s["device_s"] > 0 for s in log)
+    assert sum(s["device_s"] for s in log[:4]) <= log[4]["device_s"] * 1.001
+    root = log[4]
+    inp = kcount.prepare_reads(rs, dev)
+    assert root["kmer_extract.launches"] == 1 and root["kmer_extract.bytes"] == k1.launch_bytes(
+        inp["codes_ext"].numel(), inp["pos_read"].shape[0])
+    rows, m, kept = info["first_block_sort_rows"], table.count.shape[0], int(table.n_valid)
+    # the occurrence sort, then 8 membership joins of the table against itself
+    assert root["sort.launches"] == 9
+    assert root["sort.bytes"] == k4.launch_bytes(rows, 4) + 8 * k4.launch_bytes(2 * m, 4)
+    assert root["run_reduce.bytes"] == k3.launch_bytes(rows)
+    # three words and two int32 columns, the tail filled
+    assert root["compact.bytes"] == k2.launch_bytes(rows, kept, 32, fill=True)
+    assert kept > 0

@@ -13,7 +13,10 @@ Phases (each prints its own lines; any failure exits nonzero and prints no
      stream (K2 with 5 columns, without and with the count's tail fill,
      the latter beside the K2 + zero + sentinel passes it replaced; then
      again on a raw block's kept rows, K3 with (1, 0)), and K3 again on
-     that stream with ~10% of its rows folded into runs of 100k-1M rows.
+     that stream with ~10% of its rows folded into runs of 100k-1M rows;
+     then K5 at the main path's scan shapes (SCAN_SHAPES: the count's
+     extraction, a recompute join, a pather block's join and its hits)
+     beside its twin and torch.cummax.
      All outputs are integers and must be EXACTLY equal; median times by
      CUDA events after a warm-up, beside the bound (bytes the function
      must move over 3.35 TB/s) and, for K4 and K2, one PyTorch call
@@ -224,6 +227,8 @@ KERNELS = {
                    "supernova_tpu/ops/pallas/run_reduce.py:206"),
     "compact": ("supernova_tpu_torch/csrc/compact.cu",
                 "supernova_tpu/ops/pallas/compact.py:115"),
+    "scan_max": ("supernova_tpu_torch/csrc/scan_max.cu",
+                 "none: jax.lax.cummax (supernova_tpu/kmer/count.py:80,126), lowered by XLA"),
 }
 # the keys every kernel's entry of the JSON line has; the entry also
 # carries the kernel's other measurements (K3 on long runs and on the mixed
@@ -462,6 +467,73 @@ def phase_kernels(torch, rs, dev):
     res["compact"].update(raw_shape=raw["shape"], raw_ms=raw["ms"], raw_fill_ms=raw["fill_ms"],
                           raw_three_step_ms=raw["three_step_ms"])
     return res
+
+
+# K5's shapes on the main path (the benchmark's val10mb readset: 1,575,580
+# pairs of 2 x 150 bases; a 10,462,765-kmer table; 2 pather blocks of
+# 361,747,200 positions, 103 queries a 150-base read):
+#   (label, elements, values given, one mask bit every `period` elements)
+SCAN_SHAPES = (
+    # the extraction's read starts, values None (count.py extract_occurrences)
+    ("extraction", 472_674_000, False, 150),
+    # a recompute join: the table and a chunk of the same size, merged;
+    # 2 of its 3 scans take values None, the third the table rows
+    ("recompute join", 20_925_530, False, 2),
+    # a pather block's join: 248,399,744 queries beside the table
+    ("pather join", 258_862_509, False, 25),
+    # the hits of the first pather block (~90% of its queries), the slot
+    # counter masked at each read's first hit (pather.py _compact_and_place)
+    ("block hits", 224_000_000, True, 93),
+)
+
+
+def phase_scan_max(torch, dev):
+    """K5 against its plain twin (torch.where, then torch.cummax) and
+    torch.cummax alone (of the where's result, built beforehand) at the main
+    path's shapes; exact equality, median times by CUDA events."""
+    from supernova_tpu_torch.ops.kernels import scan_max as k5
+
+    res = {}
+    for label, n, has_values, period in SCAN_SHAPES:
+        idx = torch.arange(n, device=dev)
+        mask = idx % period == 0
+        # a non-decreasing counter (as the pather's slot counter) or None
+        values = torch.cumsum(mask.long(), 0) if has_values else None
+        x = torch.where(mask, idx if values is None else values, -1)
+        del idx
+        got = k5.scan_max_cuda(values, mask, -1)
+        ref = torch.cummax(x, 0).values
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"K5 differs from torch.cummax ({label})")
+        r = dict(
+            shape=f"{label}: {n} elements, " + ("int64 values" if has_values else "values None")
+            + f", mask 1 in {period}",
+            max_abs_err=max_abs_err(torch, [(got, ref)]),
+            ms=median_ms(torch, lambda: k5.scan_max_cuda(values, mask, -1)),
+            plain_ms=median_ms(torch, lambda: k5.scan_max_plain(values, mask, -1)),
+            # read the values (if any) and the mask, write the int64 result
+            bound_ms=bound_ms(k5.launch_bytes(n, 8, has_values, True)),
+            library_ms=median_ms(torch, lambda: torch.cummax(x, 0).values),
+            library_shape=f"torch.cummax of the masked values, {n} elements",
+        )
+        if label == "recompute join":  # the join's third scan: the table rows
+            rows = torch.cumsum(mask.long(), 0) - 1
+            r["values_ms"] = median_ms(torch, lambda: k5.scan_max_cuda(rows, mask, -1))
+            r["values_bound_ms"] = bound_ms(k5.launch_bytes(n, 8, True, True))
+            del rows
+        print_kernel("scan_max", r)
+        res[label] = r
+        del got, ref, x, values, mask
+        torch.cuda.empty_cache()
+    print_launches(torch, "scan_max", lambda: k5.scan_max_cuda(
+        None, torch.ones(1 << 20, dtype=torch.bool, device=dev), 0))
+    # the entry is the extraction's; the other shapes' numbers under their labels
+    out = dict(res["extraction"])
+    for label, r in res.items():
+        if label != "extraction":
+            key = label.replace(" ", "_")
+            out.update({f"{key}_{k}": v for k, v in r.items() if k != "library_shape"})
+    return out
 
 
 def once_ms(torch, fn):
@@ -3039,6 +3111,8 @@ def run_phases(torch, smi, t_start, genome_dir, writer) -> int:
     rs_full = timed("simulate full slice", datasets.simulate, datasets.FULL, datasets.FULL_SEED)
     print(f"[data] full slice: {rs_full.n_reads} reads, {int(rs_full.offsets[-1])} bases")
     kres = timed("kernels", phase_kernels, torch, rs_full, dev)
+    torch.cuda.empty_cache()
+    kres["scan_max"] = timed("scan_max", phase_scan_max, torch, dev)
     torch.cuda.empty_cache()
     rs_small = datasets.simulate(datasets.SMALL, datasets.SMALL_SEED)
     timed("small", phase_small_slice, torch, rs_small)

@@ -35,7 +35,8 @@ The command line and the pipeline runtime:
                        kernel_phases (measurement scripts for the card)
 
 The device path:
-  ops/kernels/         K1 kmer_extract, K2 compact, K3 run_reduce, K4 sort:
+  ops/kernels/         K1 kmer_extract, K2 compact, K3 run_reduce, K4 sort,
+                       K5 scan_max:
                        wrappers over csrc/*.cu (built at first use into
                        _build/, loaded with ctypes) beside their plain twins
   ops/segments.py, ops/alignment.py  run masks and stable compaction; the

@@ -38,6 +38,7 @@ import torch
 from ..core import kmer_codec as kc
 from ..core.kmer_codec import K, W3
 from ..kmer import count as kcount
+from ..ops.kernels.scan_max import scan_max
 from ..stats.trace import span, upload
 
 MAX_PATH = 12  # max edges a 150 bp read can plausibly traverse; overflow flagged
@@ -144,7 +145,7 @@ def _compact_and_place(hit, edge, epos, locate, rp: int, max_path: int,
     g = torch.cumsum(new.long(), 0) - 1  # global slot counter
     read_first = torch.ones_like(new)
     read_first[1:] = cread[1:] != cread[:-1]
-    base = torch.cummax(torch.where(read_first, g, -1), 0).values
+    base = scan_max(g, read_first, -1)
     slot = g - base
 
     flat = cread * max_path + slot

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.kernels.scan_max import scan_max
 from ..ops.kernels.sort import lex_argsort
 
 K = 48
@@ -204,14 +205,13 @@ def lookup_words_merge(table: W3, query: W3):
     sa, sb, sc = ka[perm], kb[perm], kc_[perm]
     is_table = perm < m
     sidx = torch.where(is_table, perm, perm - m)
-    pos = torch.arange(m + n, device=dev)
     # table rows arrive pre-sorted, so their row ids increase in merged
-    # order and a cummax propagates the latest table row exactly
-    last_tpos = torch.cummax(torch.where(is_table, pos, -1), 0).values
-    last_trow = torch.cummax(torch.where(is_table, sidx, -1), 0).values
+    # order and a running max propagates the latest table row exactly
+    last_tpos = scan_max(None, is_table, -1)  # values None: the merged position
+    last_trow = scan_max(sidx, is_table, -1)
     wstarts = torch.ones(m + n, dtype=torch.bool, device=dev)
     wstarts[1:] = (sa[1:] != sa[:-1]) | (sb[1:] != sb[:-1]) | (sc[1:] != sc[:-1])
-    last_run_start = torch.cummax(torch.where(wstarts, pos, 0), 0).values
+    last_run_start = scan_max(None, wstarts, 0)
     found_here = last_tpos >= last_run_start
     # back to query order: query slots are a permutation, so every target
     # index is written exactly once

@@ -48,6 +48,7 @@ from ..ingest.feudal import pack_codes
 from ..ingest.reads import ReadSet
 from ..ops import segments as seg
 from ..ops.kernels.run_reduce import run_reduce, run_stats_plain
+from ..ops.kernels.scan_max import scan_max
 from ..stats.trace import span, upload
 from . import spill
 
@@ -126,7 +127,7 @@ def extract_occurrences(codes_ext, pos_read, glen_pos, bc_pos, min_read_len: int
 
     read_first = torch.ones(nb, dtype=torch.bool, device=dev)
     read_first[1:] = pos_read[1:] != pos_read[:-1]
-    start = torch.cummax(torch.where(read_first, p, 0), 0).values
+    start = scan_max(None, read_first, 0)
     pir = p - start  # position in read
     glen = glen_pos.to(torch.int64)
     valid = (pir + K <= glen) & (glen >= min_read_len)

@@ -4,6 +4,7 @@
   K2 compact.compact             <- ops/pallas/compact.py
   K3 run_reduce.run_reduce       <- ops/pallas/run_reduce.py
   K4 sort.lex_argsort            <- ops/pallas/sort.py
+  K5 scan_max.scan_max           <- none (jax.lax.cummax, lowered by XLA)
 
 Each wrapper runs its plain PyTorch twin for CPU tensors and launches its
 CUDA kernel for CUDA tensors (raising on anything the kernel does not
@@ -16,13 +17,14 @@ the counts are resolved.
 """
 from __future__ import annotations
 
-from . import compact, kmer_extract, run_reduce, sort
+from . import compact, kmer_extract, run_reduce, scan_max, sort
 
 WRAPPERS = {
     "kmer_extract": kmer_extract.sliding_words,
     "compact": compact.compact,
     "run_reduce": run_reduce.run_reduce,
     "sort": sort.lex_argsort,
+    "scan_max": scan_max.scan_max,
 }
 
 

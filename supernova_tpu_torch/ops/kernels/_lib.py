@@ -58,6 +58,10 @@ SIGNATURES = {
     # src, write_keys, write_perm, kv_in, idx_in, column, n, shift, bins,
     # counter, status, status_words, tag, kv_out, idx_out, perm_out, stream
     "sn_radix_onesweep": [INT, INT, INT, P, P, P, LL, INT, P, P, P, LL, INT, P, P, P, P],
+    # values or null, mask or null, out, n, esize, fill, scratch,
+    # scratch_words, stream
+    "sn_scan_max": [P, P, P, LL, INT, LL, P, LL, P],
+    "sn_scan_max_tile_elems": [],
 }
 
 

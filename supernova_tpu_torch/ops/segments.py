@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from .kernels import compact as kcompact
+from .kernels.scan_max import scan_max
 
 
 def run_starts(*key_arrays):
@@ -55,8 +56,9 @@ def seg_min(values, seg_ids, num_segments: int):
 
 def run_broadcast_from_start(values, starts, fill=0):
     """Per-row value of the row's run start, for NON-DECREASING `values`
-    (cumsums): a cummax of the start-masked values is exact."""
-    return torch.cummax(torch.where(starts, values, fill), 0).values
+    (cumsums): a running max of the start-masked values is exact (K5 on
+    the card)."""
+    return scan_max(values, starts, fill)
 
 
 def run_end_mask(starts):

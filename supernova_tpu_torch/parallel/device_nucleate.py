@@ -47,6 +47,7 @@ import torch
 
 from ..ops import segments as seg
 from ..ops.kernels.compact import compact
+from ..ops.kernels.scan_max import scan_max
 from ..ops.kernels.sort import lex_argsort
 
 BIG = 0x7FFFFFFF
@@ -96,7 +97,7 @@ def ragged_expand(sizes, budget: int | None):
     owner = torch.zeros(rows + 1, dtype=torch.int64, device=dev)
     at = torch.where((sizes > 0) & (dst < rows), dst, rows)
     owner = _scatter(owner, at, torch.arange(n, device=dev), "amax")
-    owner = torch.cummax(owner, 0).values
+    owner = scan_max(owner)
     t = torch.arange(rows, device=dev) - dst[owner]
     return owner, t, max(total - rows, 0)
 
@@ -201,7 +202,7 @@ def glue_device(
     (e3, c3, p3), (s3,) = _sorted((cvals, ccid, cpos), (is_seed,))
     ps = pall
     est3 = seg.run_starts(e3)
-    run_start3 = torch.cummax(torch.where(est3, ps, 0), 0).values
+    run_start3 = scan_max(None, est3, 0)
     rend3 = seg.run_end_mask(est3)
     run_end3 = _bcast_back(torch.where(rend3, ps, BIG))
     run_len3 = run_end3 - run_start3 + 1

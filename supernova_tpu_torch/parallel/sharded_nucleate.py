@@ -32,6 +32,7 @@ import torch
 
 from ..ops import segments as seg
 from ..ops.kernels.compact import compact
+from ..ops.kernels.scan_max import scan_max
 from .device_nucleate import (BIG, UBIG, _bcast_back, _scatter, _seg_count_at_rows, _sorted,
                               k30_index, ragged_expand)
 from .mesh import AXIS, Mesh
@@ -113,7 +114,7 @@ def _owner_candidates(rows, C: int, P: int, cand_budget):
     R3 = e3.shape[0]
     ps = torch.arange(R3, device=dev)
     est3 = seg.run_starts(e3) if R3 else torch.zeros(0, dtype=torch.bool, device=dev)
-    run_start3 = torch.cummax(torch.where(est3, ps, 0), 0).values
+    run_start3 = scan_max(None, est3, 0)
     run_end3 = _bcast_back(torch.where(seg.run_end_mask(est3), ps, BIG)) if R3 else ps
     run_len3 = run_end3 - run_start3 + 1
     nseed, cols = compact(s3, ps, run_start3, run_len3, c3, p3)

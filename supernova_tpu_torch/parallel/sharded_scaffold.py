@@ -32,6 +32,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..ops import segments as seg
+from ..ops.kernels.scan_max import scan_max
 from ..ops.kernels.sort import lex_argsort
 from .mesh import AXIS
 
@@ -72,7 +73,7 @@ def _pairs_from_sorted(bc_s, it_s, cap: int):
         return it_s, it_s
     p = torch.arange(n, device=bc_s.device)
     starts = seg.run_starts(bc_s)
-    run_start = torch.cummax(torch.where(starts, p, 0), 0).values
+    run_start = scan_max(None, starts, 0)
     # end of each row's run = the NEAREST end at or after the row
     ends = seg.run_end_mask(starts)
     run_end = torch.cummin(torch.where(ends, p, n).flip(0), 0).values.flip(0)

@@ -11,7 +11,7 @@ steps alone, then runs each stage of Pipeline(device="cuda") on the
 dataset inside its own torch.profiler.profile(CPU, CUDA).  Per stage it writes the wall
 time, the device busy time (the union of the device events' intervals),
 idle share = 1 - busy / wall, peak device memory, the device time and
-launches of each of the port's kernels K1-K4, the device time and calls
+launches of each of the port's kernels K1-K5, the device time and calls
 of the elementwise operators the count's tail passes ran (WATCHED_OPS),
 the device time of each program step (the `call.` spans of
 stats/trace.py) by kernel, and the profile's top operators by self
@@ -40,6 +40,7 @@ PORT_KERNELS = {
     "K2 compact": ("compact_kernel",),
     "K3 run_reduce": ("tail_kernel", "run_reduce_kernel"),
     "K4 sort": ("hist_kernel", "onesweep_kernel"),
+    "K5 scan_max": ("scan_max_kernel",),
 }
 # the operators of the tail passes that followed each K2 call on the count
 # path until K2 wrote the tail itself (arange < n_valid, then torch.where)

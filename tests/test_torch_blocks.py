@@ -296,7 +296,8 @@ def test_rung_through_paths_in_a_fresh_process(rung_run):
     for s in ("count", "graph", "paths"):
         x = by[s]
         assert x["wall_s"] >= 0 and x["device_peak_gib"] is None
-        assert set(x["launches"]) == {"kmer_extract", "compact", "run_reduce", "sort"}
+        assert set(x["launches"]) == {"kmer_extract", "compact", "run_reduce", "sort",
+                                      "scan_max"}
         assert 0 < x["host_RssAnon_peak_gb"] <= x["host_VmRSS_peak_gb"]
         assert x["disk_free_gb_after"] > 0
     for name in ("kmers.npz", "graph.npz", "paths.npz"):

@@ -19,6 +19,7 @@ from supernova_tpu_torch.ops.kernels import _lib
 from supernova_tpu_torch.ops.kernels import compact as k2
 from supernova_tpu_torch.ops.kernels import kmer_extract as k1
 from supernova_tpu_torch.ops.kernels import run_reduce as k3
+from supernova_tpu_torch.ops.kernels import scan_max as k5
 from supernova_tpu_torch.ops.kernels import sort as k4
 from supernova_tpu_torch.pipeline.run import Pipeline
 from supernova_tpu_torch.sim import genome as sim
@@ -276,6 +277,175 @@ def test_compacts_back_to_back(dev):
     for i, n in enumerate(((1 << 22) + 11, 3 * t + 5, (1 << 21) - 1, t * 40, 7)):
         keep, cols, fills = compact_input(n, (0.03, 0.5)[i % 2], 3, dev, seed=i)
         assert_compact_matches_plain(keep, cols, fills)
+
+
+def k5_tile():
+    return _lib.library().sn_scan_max_tile_elems()
+
+
+def scan_input(n, dtype, has_values, has_mask, dev, seed, extremes=False, offset=0):
+    """(values or None, mask or None, fill) drawn on the card: values of
+    both signs and a negative fill, or only the dtype's extremes and their
+    neighbours and the dtype's minimum as the fill; ~30% of the mask set.
+    With `offset`, values and mask are views that many elements into their
+    buffers."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    info = torch.iinfo(dtype)
+    m = n + offset
+    if extremes:
+        pool = torch.tensor([info.min, info.min + 1, -1, 0, 1, info.max - 1, info.max],
+                            dtype=dtype, device=dev)
+        v, fill = pool[torch.randint(0, 7, (m,), device=dev, generator=g)], info.min
+    else:
+        v, fill = torch.randint(-(1 << 30), 1 << 30, (m,), dtype=dtype, device=dev,
+                                generator=g), -7
+    mask = torch.rand(m, device=dev, generator=g) < 0.3
+    return (v[offset:] if has_values else None), (mask[offset:] if has_mask else None), fill
+
+
+def assert_scan_matches_cummax(values, mask, fill, n, dev):
+    """K5 equals torch.cummax(torch.where(mask, values, fill), 0).values,
+    element for element."""
+    got = k5.scan_max(values, mask, fill)
+    v = torch.arange(n, device=dev) if values is None else values
+    want = torch.cummax(v if mask is None else torch.where(mask, v, fill), 0).values
+    assert got.dtype == want.dtype and got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+K5_CASES = [(torch.int32, True, True), (torch.int32, True, False), (torch.int64, True, True),
+            (torch.int64, True, False), (torch.int64, False, True)]
+
+
+@pytest.mark.parametrize("dtype,has_values,has_mask", K5_CASES)
+@pytest.mark.parametrize("n", [0, 1, "tile-1", "tile", "tile+1", (1 << 22) + 5, (1 << 26) + 3])
+def test_scan_max_matches_cummax(dev, n, dtype, has_values, has_mask):
+    """K5 at the edges of its tile and over thousands of tiles, int32 and
+    int64, with values or each element's index, with and without a mask."""
+    if isinstance(n, str):
+        n = k5_tile() + {"tile-1": -1, "tile": 0, "tile+1": 1}[n]
+    values, mask, fill = scan_input(n, dtype, has_values, has_mask, dev, seed=n)
+    assert_scan_matches_cummax(values, mask, fill, n, dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("has_mask", [True, False])
+def test_scan_max_at_the_dtype_extremes(dev, dtype, has_mask):
+    n = 37 * k5_tile() + 11
+    values, mask, fill = scan_input(n, dtype, True, has_mask, dev, seed=5, extremes=True)
+    assert_scan_matches_cummax(values, mask, fill, n, dev)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+def test_scan_max_unaligned_views(dev, offset):
+    """Values and mask as views at an odd element offset (no 16-byte
+    vector loads)."""
+    n = 3 * k5_tile() + 5
+    for dtype in (torch.int32, torch.int64):
+        values, mask, fill = scan_input(n, dtype, True, True, dev, seed=offset, offset=offset)
+        assert values.data_ptr() % 16 != 0 and mask.data_ptr() % 2 != 0
+        assert_scan_matches_cummax(values, mask, fill, n, dev)
+        assert_scan_matches_cummax(None, mask, fill, n, dev)
+
+
+def test_scans_back_to_back(dev):
+    """Scans of different n one after another on one stream: a flag or
+    tile counter left from the previous call would give a wrong prefix."""
+    t = k5_tile()
+    for i, n in enumerate(((1 << 22) + 11, 3 * t + 5, (1 << 21) - 1, t * 40, 7)):
+        values, mask, fill = scan_input(n, torch.int64, i % 2 == 0, True, dev, seed=i)
+        assert_scan_matches_cummax(values, mask, fill, n, dev)
+
+
+def test_scan_max_past_2_31_elements(dev):
+    """More than 2^31 elements (64-bit offsets), int32 values with a mask
+    and int64 indices with a mask, checked in chunks against torch.cummax
+    carried from chunk to chunk."""
+    n = (1 << 31) + k5_tile() + 3
+    free = torch.cuda.mem_get_info(dev)[0]
+    # the larger case: a mask byte and an int64 result an element, and a chunk's scratch
+    if free < n * 9 + (4 << 30):
+        n = (free - (4 << 30)) // 9 // k5_tile() * k5_tile() + 3  # the most tiles it holds
+    g = torch.Generator(device=dev).manual_seed(9)
+    mask = torch.randint(0, 10, (n,), dtype=torch.uint8, device=dev, generator=g) < 3
+    chunk = 1 << 27
+    for values in (None, "int32"):
+        if values is not None:
+            values = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), dtype=torch.int32, device=dev,
+                                   generator=g)
+        got = k5.scan_max(values, mask, -5)
+        carry = None
+        for s in range(0, n, chunk):
+            e = min(n, s + chunk)
+            v = torch.arange(s, e, device=dev) if values is None else values[s:e]
+            want = torch.cummax(torch.where(mask[s:e], v, -5), 0).values
+            if carry is not None:
+                want = torch.maximum(want, carry)
+            assert torch.equal(got[s:e], want), (s, e)
+            carry = want[-1]
+        del got, values
+        torch.cuda.empty_cache()
+
+
+def test_scan_max_counts_launches_and_bytes(dev):
+    n = 100_003
+    v = torch.arange(n, dtype=torch.int32, device=dev)
+    m = torch.ones(n, dtype=torch.bool, device=dev)
+    for values, mask, esize in ((v, m, 4), (None, m, 8), (v, None, 4), (v.long(), m, 8)):
+        c0 = kernels.counters()
+        k5.scan_max(values, mask, 0)
+        c1 = kernels.counters()
+        assert c1["scan_max.launches"] - c0["scan_max.launches"] == 1
+        assert c1["scan_max.bytes"] - c0["scan_max.bytes"] == k5.launch_bytes(
+            n, esize, values is not None, mask is not None)
+
+
+def test_scan_max_rejects_bad_input(dev):
+    v = torch.arange(12, device=dev)
+    m = torch.ones(12, dtype=torch.bool, device=dev)
+    for args in ((v.reshape(3, 4),), (v[::2],), (v, m[:5]), (None, m.reshape(3, 4)), (v, m.cpu()),
+                 (v.int(), m, 1 << 40)):
+        with pytest.raises(ValueError):
+            k5.scan_max(*args)
+    for args in ((v.float(),), (v.to(torch.int16),), (v, m.int())):
+        with pytest.raises(TypeError):
+            k5.scan_max(*args)
+
+
+def test_hot_sites_through_k5_equal_the_twin(dev, monkeypatch):
+    """extract_occurrences, lookup_words_merge and the pather's
+    _compact_and_place (through path_readset) give the same tensors through
+    K5 as through its plain twin, on the same inputs on the card."""
+    from supernova_tpu_torch.align import pather
+    from supernova_tpu_torch.core import kmer_codec as kc
+    from supernova_tpu_torch.dbg import build, graph
+    from supernova_tpu_torch.pipeline import datasets
+
+    rs = datasets.simulate(datasets.SMALL, datasets.SMALL_SEED)
+    table = kcount.count_readset(rs, dev)
+    bg = graph.from_device(build.build_graph(table), table)
+    inp = kcount.prepare_reads(rs, dev)
+    occ_args = tuple(inp[a] for a in ("codes_ext", "pos_read", "glen_pos", "bc_pos"))
+    g = torch.Generator(device=dev).manual_seed(3)
+    m = table.words.a.shape[0]
+    pick = torch.randint(0, m, (50_000,), device=dev, generator=g)
+    query = kc.W3(*(torch.where(pick % 3 == 0, w[pick] ^ 1, w[pick]) for w in table.words))
+
+    def outputs():
+        occ = kcount.extract_occurrences(*occ_args)
+        return [*occ[0], *occ[1:], *kc.lookup_words_merge(table.words, query),
+                *pather.path_readset(bg, rs, dev)]
+
+    l0 = k5.scan_max.launches
+    got = outputs()
+    assert k5.scan_max.launches > l0
+    for mod in (kcount, kc, pather):
+        monkeypatch.setattr(mod, "scan_max", k5.scan_max_plain)
+    l0 = k5.scan_max.launches
+    want = outputs()
+    assert k5.scan_max.launches == l0
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_sort_wrapper_rejects_bad_input(dev):
@@ -736,6 +906,11 @@ def test_spans_and_byte_counters_on_the_card(dev):
     rows, m, kept = info["first_block_sort_rows"], table.count.shape[0], int(table.n_valid)
     # the occurrence sort, then 8 membership joins of the table against itself
     assert root["sort.launches"] == 9
+    # the extraction's scan, then 3 in each of the 8 joins
+    assert root["scan_max.launches"] == 25
+    assert root["scan_max.bytes"] == k5.launch_bytes(
+        inp["pos_read"].shape[0], 8, False, True) + 8 * (
+        2 * k5.launch_bytes(2 * m, 8, False, True) + k5.launch_bytes(2 * m, 8, True, True))
     assert root["sort.bytes"] == k4.launch_bytes(rows, 4) + 8 * k4.launch_bytes(2 * m, 4)
     assert root["run_reduce.bytes"] == k3.launch_bytes(rows)
     # three words and two int32 columns, the tail filled

@@ -184,4 +184,5 @@ def test_cpu_wrappers_never_launch():
     keep, count, stats = k3.run_reduce(*cols, 3, 2)
     k2.compact(keep, *cols[:3], count, stats)
     kernels.WRAPPERS["sort"](*cols)
-    assert kernels.launch_counts() == {"kmer_extract": 0, "compact": 0, "run_reduce": 0, "sort": 0}
+    assert kernels.launch_counts() == {"kmer_extract": 0, "compact": 0, "run_reduce": 0, "sort": 0,
+                                       "scan_max": 0}

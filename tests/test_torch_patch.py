@@ -120,7 +120,7 @@ def test_stage_patch_writes_the_reference_files(fixture, tmp_path, monkeypatch):
         assert port.stats.get(k) == ref.stats.get(k), k
     assert port.stats.get("gap_closures") >= 1
     assert port.stage_records["patch"]["rebuild_launches"] == {
-        "kmer_extract": 0, "compact": 0, "run_reduce": 0, "sort": 0}
+        "kmer_extract": 0, "compact": 0, "run_reduce": 0, "sort": 0, "scan_max": 0}
 
     monkeypatch.setattr(ppatch, "insert_patches", lambda *a: pytest.fail("rebuilt on resume"))
     resumed = prun.Pipeline(tmp_path / "port", device="cpu", resume=True)

@@ -26,7 +26,7 @@ ARGS = dict(genome_size=150_000, repeats=3, barcodes=60, whitelist_size=256, see
 FLAGS = [x for k, v in ARGS.items() for x in (f"--{k.replace('_', '-')}", str(v))]
 PHASES = ("splay", "star", "fix", "starstar", "presize", "stackaroo", "unvoid", "void",
           "patch", "mis", "invfix", "canon", "gaprika", "audit", "fase")
-KERNELS = {"kmer_extract", "compact", "run_reduce", "sort"}
+KERNELS = {"kmer_extract", "compact", "run_reduce", "sort", "scan_max"}
 
 
 def reference_run(root: Path, env: dict) -> dict:

@@ -171,7 +171,8 @@ def test_stats_match_reference(runs):
 
 
 def test_cpu_run_launches_no_kernel(runs):
-    assert kernels.launch_counts() == {"kmer_extract": 0, "compact": 0, "run_reduce": 0, "sort": 0}
+    assert kernels.launch_counts() == {"kmer_extract": 0, "compact": 0, "run_reduce": 0, "sort": 0,
+                                       "scan_max": 0}
 
 
 def test_cuda_device_raises_without_a_card(tmp_path):

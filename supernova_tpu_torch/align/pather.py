@@ -27,7 +27,8 @@ A call is the span call.path_readset (stats/trace.py), each block's steps
 call.paths.prep (the block's host preparation, its upload and expansion
 on the device), call.paths.join (K1, canonicalisation, the tail cut and
 the merge join with its value gathers) and call.paths.place (slotting,
-seed chains, and the blocks' concatenation).
+seed chains, and the blocks' concatenation); each block's queries are
+counted in prep (`prepare_block`).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from ..core import kmer_codec as kc
 from ..core.kmer_codec import K, W3
 from ..kmer import count as kcount
 from ..ops.kernels.scan_max import scan_max
-from ..stats.trace import span, upload
+from ..stats.trace import count_rows, span, upload
 
 MAX_PATH = 12  # max edges a 150 bp read can plausibly traverse; overflow flagged
 JITTER = 3  # max indel slack for captured gaps / junctions
@@ -268,15 +269,29 @@ def packed_inputs(pk: dict, device) -> dict:
                 nbp=nbp, uniform_rl=rl)
 
 
+def query_rows(inp: dict) -> int:
+    """The dictionary queries a block's join makes from its inputs (either
+    pather's): every position, or a uniform block's positions less each
+    read's last K-1."""
+    nbp, rl = inp["nbp"] if "nbp" in inp else inp["pos_read"].shape[0], inp["uniform_rl"]
+    return nbp if rl is None else nbp // rl * (rl - K + 1)
+
+
 def prepare_block(rs, device, packed: bool, pad_to_positions: int | None = None,
                   pad_to_reads: int | None = None) -> dict:
     """One block's inputs on `device` (the prep step): packed_inputs for the
-    fused pather, else kcount.prepare_reads' for the general one."""
+    fused pather, else kcount.prepare_reads' for the general one.  Its join
+    is counted as join_rows and dead_join_rows (stats/trace.py count_rows):
+    the queries, and those that start no K-mer of the block's reads (past
+    a read's last K-1, the padding up to its sibling blocks' shape)."""
     with span("call.paths.prep", device):
         if packed:
-            return packed_inputs(kcount.prepare_reads_packed(rs, pad_to_positions), device)
-        return kcount.prepare_reads(rs, device, pad_to_positions=pad_to_positions,
-                                    pad_to_reads=pad_to_reads)
+            inp = packed_inputs(kcount.prepare_reads_packed(rs, pad_to_positions), device)
+        else:
+            inp = kcount.prepare_reads(rs, device, pad_to_positions=pad_to_positions,
+                                       pad_to_reads=pad_to_reads)
+        count_rows("join", lambda: (query_rows(inp), kcount.kmer_starts(rs.lengths())))
+        return inp
 
 
 def _path_packed(bg, inp, device, max_path: int, rp_pad: int) -> ReadPaths:

@@ -49,7 +49,7 @@ from ..ingest.reads import ReadSet
 from ..ops import segments as seg
 from ..ops.kernels.run_reduce import run_reduce, run_stats_plain
 from ..ops.kernels.scan_max import scan_max
-from ..stats.trace import span, upload
+from ..stats.trace import count_rows, span, upload
 from . import spill
 
 log = logging.getLogger("supernova_tpu_torch")
@@ -227,6 +227,20 @@ def occurrence_rows(codes_ext, pos_read, glen_pos, bc_pos, uniform_rl: int | Non
     return canon, pk
 
 
+def kmer_starts(lengths: np.ndarray) -> int:
+    """Positions that start a K-mer in reads of these lengths."""
+    return int(np.maximum(np.asarray(lengths, np.int64) - K + 1, 0).sum())
+
+
+def count_sort_rows(rows: int, glen: np.ndarray, min_read_len: int) -> None:
+    """Counts one occurrence sort of `rows` rows over reads of good lengths
+    glen as sort_rows and dead_sort_rows (stats/trace.py count_rows): the
+    live rows start a K-mer inside the good bases of a read of at least
+    min_read_len of them; the others hold the sentinel (past a good length
+    or a read's last K-1, shorter reads, the bucket padding)."""
+    count_rows("sort", lambda: (rows, kmer_starts(glen[glen >= min_read_len])))
+
+
 def count_kmers(codes_ext, pos_read, glen_pos, bc_pos, min_freq: int = MIN_FREQ,
                 min_bc: int = MIN_BC, min_read_len: int = K + 1,
                 uniform_rl: int | None = None) -> KmerTable:
@@ -371,7 +385,9 @@ def prepare_reads(rs, device, pad_to_positions: int | None = None,
     fake empty read n_reads.  The pad_to_* arguments give sibling blocks one
     shape.  The host sends 2-bit packed codes and per-READ lengths, good
     lengths and barcodes; the per-position arrays are expanded on the
-    device (~16x fewer bytes over the bus than expanded arrays)."""
+    device (~16x fewer bytes over the bus than expanded arrays).  The dict
+    also keeps the reads' good lengths on the host (`good_lengths`, numpy),
+    for count_sort_rows."""
     device = torch.device(device)
     nb = int(rs.offsets[-1])
     n_reads = rs.n_reads
@@ -390,7 +406,8 @@ def prepare_reads(rs, device, pad_to_positions: int | None = None,
     # per read, the fake read n_reads last: positions, length, good length
     reps = np.append(np.diff(rs.offsets), nbp - nb).astype(np.int64)
     rlen = np.append(reps[:n_reads], 0).astype(np.int32)
-    glen = np.append(good_lengths_np(rs.quals, rs.offsets), 0).astype(np.int32)
+    good_lengths = good_lengths_np(rs.quals, rs.offsets)
+    glen = np.append(good_lengths, 0).astype(np.int32)
     t = lambda a: upload(a, device)
     pos_read = torch.repeat_interleave(
         torch.arange(n_reads + 1, dtype=torch.int32, device=device), t(reps), output_size=nbp)
@@ -399,7 +416,7 @@ def prepare_reads(rs, device, pad_to_positions: int | None = None,
         codes_ext=_unpack_codes_dev(t(pack_codes(codes)), nbp, max(K, 128)),
         read_offsets=t(offsets), pos_read=pos_read, glen_pos=per_pos(glen),
         bc_pos=per_pos(read_bc[: n_reads + 1]), rlen_pos=per_pos(rlen),
-        read_bc=t(read_bc), uniform_rl=uniform_rl,
+        read_bc=t(read_bc), uniform_rl=uniform_rl, good_lengths=good_lengths,
     )
 
 
@@ -773,6 +790,7 @@ def count_readset_blocked(rs, device, min_freq: int | None = None, min_bc: int |
             p = prepare_reads(blocks[i], device, pad_to_positions=pad_pos, pad_to_reads=pad_rd)
         raw = count_block_raw(p["codes_ext"], p["pos_read"], p["glen_pos"], p["bc_pos"],
                               p["uniform_rl"], min_read_len)
+        count_sort_rows(raw.count.shape[0], p["good_lengths"], min_read_len)
         if i == 0:  # the raw table keeps the sort's row count
             _first_block(info, p, raw.count)
         return raw
@@ -897,7 +915,8 @@ def count_readset(rs, device, min_freq: int | None = None, min_bc: int | None = 
     is trimmed to the geometric-ladder row count before the adjacency
     recompute, so its membership joins run at table scale.  The call is
     the span call.count_readset, its steps call.count.prep, .sort, .reduce
-    and .recompute (stats/trace.py; a block's steps in the blocked count)."""
+    and .recompute (stats/trace.py; a block's steps in the blocked count);
+    every block's occurrence sort is counted by count_sort_rows."""
     from ..dbg.build import trim_table
 
     device = torch.device(device)
@@ -918,6 +937,7 @@ def count_readset(rs, device, min_freq: int | None = None, min_bc: int | None = 
             rows = occurrence_rows(inp["codes_ext"], inp["pos_read"], inp["glen_pos"],
                                    inp["bc_pos"], inp["uniform_rl"], min_read_len)
             _first_block(info, inp, rows[1])
+            count_sort_rows(rows[1].shape[0], inp["good_lengths"], min_read_len)
             ws, pk = sort_occurrence_rows(*rows)
         with span("call.count.reduce", device):
             table = _reduce_sorted(ws, pk, min_freq, min_bc)

@@ -22,8 +22,13 @@ event on the device's current stream at entry and at exit (on a card;
 read lazily, so the span's device interval, from its first to its last
 operation on the stream, costs no sync), and appends to the span log its
 name, its parent, its host start and end and the deltas of the counters:
-`h2d_bytes` (bytes the program's uploads handed to a device, `upload`)
-and each kernel wrapper's `launches` and `bytes` (ops/kernels).
+`h2d_bytes` (bytes the program's uploads handed to a device, `upload`),
+`sort_rows` and `dead_sort_rows` (the count's occurrence rows that K4
+sorts, and those of them holding the sentinel), `join_rows` and
+`dead_join_rows` (the pather's query rows, and those that cannot hold a
+read's kmer), both pairs added by `count_rows` from shapes and host
+arrays while a profiler runs, and each kernel wrapper's `launches` and
+`bytes` (ops/kernels).
 `spans()` returns the log with device seconds resolved; `clear_spans()`
 empties it.  Every program span is named under `call.`: the profiler
 also leaves each record_function on the device's timeline, and the
@@ -116,7 +121,11 @@ def stage(name: str, device: torch.device, stats, record: dict):
 
 # ------------------------------------------------------------------ spans
 
-COUNTERS = {"h2d_bytes": 0}  # bytes `upload` has handed to a device
+COUNTERS = {
+    "h2d_bytes": 0,  # bytes `upload` has handed to a device
+    "sort_rows": 0, "dead_sort_rows": 0,  # count_rows("sort", ...): the count's K4 rows
+    "join_rows": 0, "dead_join_rows": 0,  # count_rows("join", ...): the pather's queries
+}
 _OFF = nullcontext()
 _LOG: list = []  # [_Span] closed while a profiler ran, in closing order
 _OPEN: list = []  # names of the open spans, innermost last
@@ -128,8 +137,23 @@ def upload(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def tracing() -> bool:
+    """Whether a torch.profiler session runs: the one flag a span checks."""
+    return torch._C._autograd._profiler_enabled()
+
+
+def count_rows(kind: str, rows_and_live) -> None:
+    """While a profiler runs, rows_and_live() -> (rows, live): add rows to
+    the counter `<kind>_rows` and rows - live to `dead_<kind>_rows`; else
+    one flag check (rows_and_live is not called)."""
+    if tracing():
+        rows, live = rows_and_live()
+        COUNTERS[f"{kind}_rows"] += int(rows)
+        COUNTERS[f"dead_{kind}_rows"] += int(rows) - int(live)
+
+
 def _counters() -> dict:
-    return {"h2d_bytes": COUNTERS["h2d_bytes"], **kernels.counters()}
+    return {**COUNTERS, **kernels.counters()}
 
 
 class _Span:
@@ -184,7 +208,7 @@ def span(name: str, device=None):
     while a torch.profiler session runs, a record_function, the step's
     device interval on `device` (a CUDA device; None or a CPU device
     records none) and an entry in the span log; else a shared no-op."""
-    if not torch._C._autograd._profiler_enabled():
+    if not tracing():
         return _OFF
     return _Span(name, device)
 
@@ -193,7 +217,7 @@ def spans() -> list:
     """The span log, oldest closed first: one dict a span with name,
     parent (the enclosing span's name or None), host_start and host_end
     (time.perf_counter()), device_s (the device interval in seconds, None
-    off a card) and the counter deltas (h2d_bytes, <kernel>.launches,
+    off a card) and the counter deltas (COUNTERS' keys, <kernel>.launches,
     <kernel>.bytes)."""
     return [s.record() for s in _LOG]
 

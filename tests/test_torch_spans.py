@@ -207,10 +207,11 @@ def test_kept_bytes_on_the_device_resolve_into_k2s_bytes(monkeypatch):
 
 # ---------------------------------------------------------- the readers
 
-def fake_world(call, root, steps, kernel_bytes=0, h2d=0):
+def fake_world(call, root, steps, kernel_bytes=0, h2d=0, rows=None):
     """Two calls of 1 s under `call`, each with `root` and its `steps` (a
-    list of (name, host start, host end, device seconds)); the device busy
-    0.2 s a call in K4 and 0.3 s in other work.  -> (Trace, span log)."""
+    list of (name, host start, host end, device seconds)), the root
+    holding the row counters `rows`; the device busy 0.2 s a call in K4
+    and 0.3 s in other work.  -> (Trace, span log)."""
     dev, spans, log = [], {"window": [(0.0, 2.0)], call: [(0.0, 1.0), (1.0, 2.0)]}, []
     for c in (0.0, 1.0):
         dev += [(c + 0.1, c + 0.3, "onesweep_kernel"), (c + 0.3, c + 0.6, "elementwise_kernel")]
@@ -220,20 +221,23 @@ def fake_world(call, root, steps, kernel_bytes=0, h2d=0):
                         **{f"{k}.bytes": 0 for k in kernels.WRAPPERS}})
         spans.setdefault(root, []).append((c + 0.01, c + 0.99))
         log.append({"name": root, "parent": None, "device_s": 0.9, "h2d_bytes": h2d,
-                    **{f"{k}.bytes": 0 for k in kernels.WRAPPERS}, "sort.bytes": kernel_bytes})
+                    **{f"{k}.bytes": 0 for k in kernels.WRAPPERS}, "sort.bytes": kernel_bytes,
+                    **(rows or {})})
     return btrace.Trace((0.0, 2.0), dev, spans), log
 
 
 COUNT_WORLD = dict(call="call.count", root="call.count_readset", steps=[
     ("call.count.prep", 0.02, 0.3, 0.01), ("call.count.sort", 0.3, 0.5, 0.25),
     ("call.count.reduce", 0.5, 0.6, 0.02), ("call.count.recompute", 0.6, 0.98, 0.4)],
-    kernel_bytes=335_000_000, h2d=206_000_000)
+    kernel_bytes=335_000_000, h2d=206_000_000,
+    rows={"sort_rows": 436_436_992, "dead_sort_rows": 148_105_852})
 PATHS_WORLD = dict(call="call.paths", root="call.path_readset", steps=[
     ("call.paths.prep", 0.02, 0.03, 0.0), ("call.paths.prep", 0.03, 0.2, 0.001),
     ("call.paths.join", 0.2, 0.4, 0.3), ("call.paths.place", 0.4, 0.5, 0.1),
     ("call.paths.prep", 0.5, 0.7, 0.001), ("call.paths.join", 0.7, 0.9, 0.3),
     ("call.paths.place", 0.9, 0.95, 0.1), ("call.paths.place", 0.95, 0.97, 0.01)],
-    kernel_bytes=67_000_000, h2d=118_000_000)
+    kernel_bytes=67_000_000, h2d=118_000_000,
+    rows={"join_rows": 723_517_440, "dead_join_rows": 435_186_300})
 WANT = {
     "prep_s.count": (COUNT_WORLD, 0.28), "sort_s.count": (COUNT_WORLD, 0.25),
     "reduce_s.count": (COUNT_WORLD, 0.02), "recompute_s.count": (COUNT_WORLD, 0.4),
@@ -243,6 +247,9 @@ WANT = {
     "prep_s.paths": (PATHS_WORLD, 0.38), "join_s.paths": (PATHS_WORLD, 0.6),
     "place_s.paths": (PATHS_WORLD, 0.21), "h2d_gb.paths": (PATHS_WORLD, 0.118),
     "kernel_roofline.paths": (PATHS_WORLD, 0.01),
+    # the Chromium layout's one count block and two padded pather blocks
+    "dead_rows.count": (COUNT_WORLD, 148_105_852 / 436_436_992),
+    "dead_rows.paths": (PATHS_WORLD, 435_186_300 / 723_517_440),
 }
 
 
@@ -268,6 +275,14 @@ def test_reader_reads_nothing_it_cannot_trust(metric, monkeypatch):
     assert read(tr) is None
     monkeypatch.delattr(st, "spans")  # a program without the span log
     assert read(fake_world(**world)[0]) is None
+
+
+@pytest.mark.parametrize("metric", ["dead_rows.count", "dead_rows.paths"])
+def test_dead_rows_read_nothing_from_a_program_without_row_counters(metric, monkeypatch):
+    world = dict(WANT[metric][0], rows=None)  # the log of a tree before the counters
+    tr, log = fake_world(**world)
+    monkeypatch.setattr(st, "spans", lambda: log)
+    assert bench_run.reader(metric)(tr) is None
 
 
 def test_span_kernels_gives_each_kernel_to_its_innermost_step():
